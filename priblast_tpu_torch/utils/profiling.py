@@ -1,0 +1,81 @@
+"""Stage timing and profiling hooks.
+
+Every pipeline stage can be timed with ``stage(name, device)``; a summary
+is printed when PRIBLAST_TIMINGS=1. On a CUDA device the stage
+synchronises before reading the clock on each side, so the time covers
+the device work the stage queued and not only its launches.
+``device_trace(name)`` wraps a block in a ``torch.profiler`` trace
+(exported as a Chrome trace) when PRIBLAST_TRACE_DIR is set.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from collections import defaultdict
+
+_times: dict[str, float] = defaultdict(float)
+_counts: dict[str, int] = defaultdict(int)
+
+
+def enabled() -> bool:
+    return os.environ.get("PRIBLAST_TIMINGS", "") not in ("", "0")
+
+
+def _sync(device) -> None:
+    if device is not None and getattr(device, "type", device) == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def stage(name: str, device=None):
+    _sync(device)
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _sync(device)
+        _times[name] += time.perf_counter() - t0
+        _counts[name] += 1
+
+
+@contextlib.contextmanager
+def device_trace(name: str):
+    trace_dir = os.environ.get("PRIBLAST_TRACE_DIR", "")
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, f"{name}.json"))
+
+
+def snapshot() -> dict[str, float]:
+    return dict(_times)
+
+
+def reset() -> None:
+    _times.clear()
+    _counts.clear()
+
+
+def report() -> str:
+    lines = ["stage timings:"]
+    for name, total in sorted(_times.items(), key=lambda kv: -kv[1]):
+        lines.append(f"  {name:32s} {total:9.3f}s  x{_counts[name]}")
+    return "\n".join(lines)
+
+
+def maybe_report() -> None:
+    if enabled() and _times:
+        print(report())
