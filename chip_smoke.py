@@ -5,20 +5,21 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: the native host library (g++) and the gapped-sweep CUDA kernel
-     (nvcc, sm_90a), both from this checkout, started together;
+  2. build: the native host library (g++) and the gapped-extension CUDA
+     kernel (nvcc, sm_90a), both from this checkout, started together;
   3. main path at full size: a seeded workload the size of bench.py's
      (100 queries of ~1,000 nt against 20 db sequences of ~5,000 nt,
      first-order Markov sequences of transcript-like composition) through
-     `db --engine gpu` and `ris --engine gpu` on cuda; the sweep kernel's
-     launch count is read around that run;
+     `db --engine gpu` and `ris --engine gpu` on cuda; the gapped kernel's
+     launch count and the peak device memory are read around that run;
   4. the device chain against the port's host chain (native search per
      query on the same device-computed accessibilities), and against
      `--engine exact` (the churn of the float32 device engine);
-  5. the sweep kernel against its plain PyTorch version on the card: on
-     the inputs of the main path's first launch (its own batch shape,
-     whose times go into the kernels' record), and on real mid-stage hits
-     of phase 3 as a ragged 4096+37 batch in float32 and float64 and at
+  5. the gapped kernel (one direction, from the characters to the
+     traceback) against its plain PyTorch version on the card: on the
+     inputs of the main path's first launch (its own batch shape, whose
+     times go into the kernels' record), and on real mid-stage hits of
+     phase 3 as a ragged 4096+37 batch in float32 and float64 and at
      max_ext=64; each with its time, the plain version's time and the
      card's least time for the same work.
 The last lines are the kernels' JSON record, the card line from nvidia-smi
@@ -136,59 +137,111 @@ def cuda_ms(fn, reps: int) -> float:
     return s.elapsed_time(e) / reps
 
 
-def sweep_bound_ms(args, ints, dtype: str, dropout: int):
-    """Least time the card could take for this sweep, from this run's hits:
-    the larger of the bytes it must move over the memory rate and its
-    operations over the peak rate of the dtype.
+def extend_bound_ms(a, k, ints):
+    """Least time the card could take for one direction of the gapped
+    extension on these hits (`gapped_extend_dir`'s arguments `a`, `k` and
+    its results `ints`): the larger of the bytes it must move over the
+    memory rate and its operations over the peak rate of the dtype.
 
-    A hit sweeps diagonals 1..n (n = ints[:, 4]); on diagonal L only the
-    band cells max(1, L - maxd) <= i <= min(L - 1, maxq) can be admitted,
-    so only their lanes of the 9 float plane rows and the bit row are
-    read, and of the predecessor row written, each counted in whole
-    32-byte sectors. Add the origin cell's VM and bits, the sectors of the
-    prefix chains that band cells read (extq[i], extdb[L - i]), and each
-    hit's scalars and results. Operations: per band cell (i, j = L - i)
-    the (u1, u2) combos (u1 + u2 <= dropout) whose predecessor can hold a
-    value: a band cell (u1 <= i - 2, u2 <= j - 2) or the origin
-    (u1, u2) = (i - 1, j - 1); ~4 each.
+    Bytes, each counted once, in 32-byte sectors where they are gathered:
+    - the characters a hit needs, offsets 0..min(XW - 1, n + helix) of its
+      query and db windows (n = diagonals it swept, helix =
+      max(min_helix, 2)), in the int64 flat buffers;
+    - the accessibility entries its prefix chains need, offsets 1..n (two
+      acc entries and one cond entry on one side, one cond entry on the
+      other), in the float32 flat buffers;
+    - the hit's columns (8 int64 columns, energy0, acc0, valid);
+    - once per launch (each block loads them, but after the first block
+      they come from L2), the tables the kernel stages in shared memory:
+      int21, int11, the small int32 tables and the loop constants;
+    - of int22, which the kernel reads through L1, the sectors of the
+      entries the band cells index where the (u1, u2) = (2, 2) combo can
+      reach a predecessor value (i, j >= 4, or i = j = 3: the origin);
+    - the outputs: ints, floats and both traceback lists.
+    Operations: per band cell (i, j = L - i), max(1, L - maxd) <= i <=
+    min(L - 1, maxq), L <= n, the (u1, u2) combos (u1 + u2 <= dropout)
+    whose predecessor can hold a value: a band cell (u1 <= i - 2,
+    u2 <= j - 2) or the origin (u1, u2) = (i - 1, j - 1); ~4 each.
 
     Returns (bound ms, "bytes" or "operations", mean band lanes per swept
     diagonal)."""
     import torch
+    from priblast_tpu_torch.ops import gapped_sweep as sop
 
-    fplanes, extq, hit_i = args[0], args[2], args[4]
-    B, NF, ME1, W = fplanes.shape
-    XW = extq.shape[1]
-    item = fplanes.element_size()
-    dev = fplanes.device
-    lf, li = 32 // item, 8               # lanes per sector: float, int32
-    check(W % lf == 0 and W % li == 0, f"rows of {W} lanes are not whole "
-          "sectors")
+    (q_start, db_start, id_anchor, energy0, acc0, valid, qb, qab, dbb, aoff,
+     coff, q_enc, db_seq, q_acc, q_cond, db_acc, db_cond) = a
+    flag, d, dropout = k["flag"], k["d"], k["dropout"]
+    max_ext, helix = k["max_ext"], max(k["min_helix"], 2)
+    dtype = k.get("dtype", "float32")
+    item = 4 if dtype == "float32" else 8
+    dev = q_start.device
+    B, W, ME1, XW = q_start.shape[0], max_ext, max_ext + 1, max_ext + helix
+    n = ints[:, 4].long()
+    sign = -1 if flag == 0 else 1
+
+    def sectors(buf, pos, used):
+        """Distinct 32-byte sectors of `buf` at in-bounds `pos` [B, X]."""
+        ok = used & (pos >= 0) & (pos < buf.shape[0])
+        sec = (pos[ok] * buf.element_size()) // 32
+        return int(torch.unique(sec).numel())
+
+    x = torch.arange(XW, device=dev)[None, :]
+    need_c = x <= (n[:, None] + helix)
+    nbytes = 32 * (sectors(q_enc, (qb + q_start)[:, None] + sign * x, need_c)
+                   + sectors(db_seq, (dbb + db_start)[:, None] + sign * x,
+                             need_c))
+    need_a = (x >= 1) & (x <= n[:, None])
+    qa, ca, aa = qab + q_start, coff + id_anchor, aoff + id_anchor
+    if flag == 0:
+        acc_pos = [(q_acc, qa[:, None] - x), (q_acc, qa[:, None] - x + 1),
+                   (q_cond, qa[:, None] - x + d), (db_cond, ca[:, None] + x)]
+    else:
+        acc_pos = [(q_cond, qa[:, None] + x), (db_acc, aa[:, None] - x),
+                   (db_acc, aa[:, None] - x + 1),
+                   (db_cond, ca[:, None] - x + d)]
+    # entries of one buffer read at several offsets count once
+    by_buf = {}
+    for buf, pos in acc_pos:
+        by_buf.setdefault(id(buf), (buf, []))[1].append(pos)
+    for buf, poss in by_buf.values():
+        pos = torch.cat(poss, 1)
+        nbytes += 32 * sectors(buf, pos, need_a.repeat(1, len(poss)))
+    nbytes += B * (8 * 8 + energy0.element_size() + acc0.element_size() + 1)
+    i21_at = {name: off for name, off, _ in sop.TABLES16}["i21"]
+    consts = sop._kernel_consts(dropout, sop._DTYPES[dtype], dev)[0]
+    nbytes += (sop.N_WORDS - i21_at) * 2 + consts.numel() * item
+    nbytes += B * (5 * 4 + 2 * item + 2 * (max_ext // 2 + 1) * 4)
+
+    raw_q, qm = sop._gather_chars(q_enc, qb + q_start, sign, XW)
+    raw_d, dm = sop._gather_chars(db_seq, dbb + db_start, sign, XW)
+    maxq = sop.max_ext_of(raw_q)[:, None, None]
+    maxd = sop.max_ext_of(raw_d)[:, None, None]
     diag = torch.arange(ME1, device=dev)[:, None]
     lane = torch.arange(W, device=dev)[None, :]
-    maxq = hit_i[:, 0].long()[:, None, None]
-    maxd = hit_i[:, 1].long()[:, None, None]
-    n = ints[:, 4].long()[:, None, None]
     band = ((lane >= 1) & (lane <= diag - 1) & (lane <= maxq)
-            & (diag - lane <= maxd) & (diag <= n))   # [B, ME1, W]
+            & (diag - lane <= maxd) & (diag <= n[:, None, None])
+            & valid[:, None, None])
 
-    def row_sectors(per):
-        return int(band.view(B, ME1, W // per, per).any(-1).sum())
+    tabs = sop._tables_np()
+    bp_t = torch.as_tensor(tabs["bp"], device=dev)
+    rt_t = torch.as_tensor(tabs["rtype"], device=dev)
 
-    def chain_sectors(used):                # used [B, XW], row-major
-        idx = used.flatten().nonzero()[:, 0]
-        return int(torch.unique(idx * item // 32).numel())
+    def t0(a, b):
+        t = bp_t[a * 5 + b]
+        return rt_t[t] if flag else t
 
-    q_used = torch.zeros((B, XW), dtype=torch.bool, device=dev)
-    q_used[:, :W] = band.any(1)
-    d_used = torch.zeros((B, XW), dtype=torch.bool, device=dev)
-    for i in range(1, W):
-        d_used[:, : ME1 - i] |= band[:, i:, i]
-    origins = int(((hit_i[:, 2] != 0) & (ints[:, 4] > 0)).sum())
-    sectors = (NF * row_sectors(lf) + 2 * row_sectors(li) + 2 * origins
-               + chain_sectors(q_used) + chain_sectors(d_used))
-    nbytes = 32 * sectors + B * (16 + 2 * item + 20 + 2 * item)
-
+    i22_sec = torch.zeros(i21_at * 2 // 32, dtype=torch.bool, device=dev)
+    for L in range(6, ME1 if dropout >= 4 else 0):
+        i = torch.arange(3, L - 2, device=dev)          # i, j = L - i >= 3
+        j = L - i
+        cell = band[:, L, i] & ((i >= 4) & (j >= 4) | (i == 3) & (j == 3))
+        T, tb = t0(qm[:, i], dm[:, j]), rt_t[t0(qm[:, i - 3], dm[:, j - 3])]
+        q1, q2, d1, d2 = qm[:, i - 1], qm[:, i - 2], dm[:, j - 1], dm[:, j - 2]
+        idx = ((((T * 8 + tb) * 5 + q1) * 5 + q2) * 5 + d2) * 5 + d1
+        if flag:
+            idx = ((((tb * 8 + T) * 5 + q2) * 5 + q1) * 5 + d1) * 5 + d2
+        i22_sec[idx[cell] * 2 // 32] = True
+    nbytes += 32 * int(i22_sec.sum())
     reach = torch.zeros((ME1, W), dtype=torch.long)
     for L in range(ME1):
         for i in range(1, min(L, W)):
@@ -199,7 +252,7 @@ def sweep_bound_ms(args, ints, dtype: str, dropout: int):
     n_cells = band.sum(0).cpu()
     ops = int((n_cells * reach).sum()) * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
-    lanes = int(n_cells.sum()) / max(int(ints[:, 4].long().sum()), 1)
+    lanes = int(n_cells.sum()) / max(int(n.sum()), 1)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", lanes)
 
@@ -209,7 +262,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    if not (REPO / "priblast_tpu_torch" / "csrc" / "gapped_sweep.cu").is_file():
+    if not (REPO / "priblast_tpu_torch" / "csrc" / "gapped_extend.cu").is_file():
         fail(f"no priblast_tpu_torch package beside {__file__}")
     import torch
 
@@ -249,7 +302,7 @@ def main() -> int:
         fut_n = ex.submit(timed, native.build)
         fut_k = ex.submit(timed, gapped_sweep.build)
         (so_n, t_n), (so_k, t_k) = fut_n.result(), fut_k.result()
-    print(f"[build] native {so_n.name} {t_n:.1f}s | gapped_sweep "
+    print(f"[build] native {so_n.name} {t_n:.1f}s | gapped_extend "
           f"{so_k.name} {t_k:.1f}s", flush=True)
 
     # ---- 3. main path at full size -----------------------------------------
@@ -263,12 +316,12 @@ def main() -> int:
 
     # instrumentation: where accessibility ran, the query accessibilities
     # the device chain used, the mid-stage streams it extended, and the
-    # inputs of the first sweep launch (the main path's own batch shape)
+    # inputs of the first gapped launch (the main path's own batch shape)
     acc_devices, q_access, mid_streams, first_sweep = set(), {}, [], []
     run0 = batched.BatchedRaccess.run
     access0 = ris_gpu._accessibility_batched
     gstage0 = pipeline.gapped_stage
-    kernel = gapped_sweep.gapped_sweep
+    kernel = gapped_sweep.gapped_extend_dir
 
     def run_rec(self, codes, lengths):
         acc_devices.add(str(self.device))
@@ -291,7 +344,7 @@ def main() -> int:
     batched.BatchedRaccess.run = run_rec
     ris_gpu._accessibility_batched = access_rec
     pipeline.gapped_stage = gstage_rec
-    gapped_sweep.gapped_sweep = sweep_rec
+    gapped_sweep.gapped_extend_dir = sweep_rec
 
     db_gpu, out_gpu = work / "db_gpu", work / "ris_gpu.txt"
     prof.reset()
@@ -310,10 +363,10 @@ def main() -> int:
     batched.BatchedRaccess.run = run0
     ris_gpu._accessibility_batched = access0
     pipeline.gapped_stage = gstage0
-    gapped_sweep.gapped_sweep = kernel
+    gapped_sweep.gapped_extend_dir = kernel
 
     check(acc_devices == {"cuda"}, f"accessibility ran on {acc_devices}")
-    check(launches > 0, "the gapped sweep kernel was never launched")
+    check(launches > 0, "the gapped kernel was never launched")
     gpu_lines = body(out_gpu)
     check(len(gpu_lines) > 100, f"only {len(gpu_lines)} hits")
     for line in gpu_lines:
@@ -322,7 +375,7 @@ def main() -> int:
     tag = f"({card})"
     print(f"[main] db {db_nt} nt in {t_db:.3f}s = {db_nt / t_db:.1f} nt/s; "
           f"ris {N_Q} queries in {t_ris:.3f}s = {N_Q / t_ris:.4f} q/s; "
-          f"{len(gpu_lines)} hits; sweep launches {launches}; peak device "
+          f"{len(gpu_lines)} hits; gapped kernel launches {launches}; peak device "
           f"memory {peak_gb:.2f} GB {tag}", flush=True)
     print("[main] stage seconds " + json.dumps(
         {k: round(v, 4) for k, v in sorted(stages.items())}) + f" {tag}",
@@ -378,36 +431,38 @@ def main() -> int:
     check(frac >= 0.99, f"gpu/exact agreement {frac} < 0.99")
     check(de <= 1e-2, f"gpu/exact energy diff {de} > 1e-2")
 
-    # ---- 5. the sweep kernel vs its plain version, on the card ----------
+    # ---- 5. the gapped kernel vs its plain version, on the card ---------
     def hold(label, a, k):
-        """Kernel vs plain version on the same inputs: predecessor rows and
-        integers identical, floats to 1e-6 (float32) / 1e-12 (float64);
-        then both timed."""
-        dtype = str(a[0].dtype).replace("torch.", "")
-        pk, ik, fk = kernel(*a, **k)
-        pp, ip, fp = gapped_sweep.sweep_plain(*a, **k)
+        """Kernel vs plain version on the same inputs: integers and
+        traceback lists identical, floats to 1e-6 (float32) / 1e-12
+        (float64); then both timed."""
+        dtype = k.get("dtype", "float32")
+        ik, fk, tk = kernel(*a, **k)
+        ip, fp, tp = gapped_sweep.extend_dir_plain(*a, **k)
         torch.cuda.synchronize()
-        check(torch.equal(pk, pp), f"pred differs ({label})")
         check(torch.equal(ik, ip), f"ints differ ({label})")
+        check(torch.equal(tk, tp), f"traceback lists differ ({label})")
         diff = float((fk - fp).abs().max())
         check(diff <= (1e-6 if dtype == "float32" else 1e-12),
               f"floats differ by {diff} ({label})")
         ms = cuda_ms(lambda: kernel(*a, **k), 20)
-        plain = cuda_ms(lambda: gapped_sweep.sweep_plain(*a, **k), 1)
-        bound, bound_by, lanes = sweep_bound_ms(a, ik, dtype, k["dropout"])
-        print(f"[kernel] gapped_sweep {label} {dtype} max_ext={k['max_ext']} "
-              f"B={a[0].shape[0]}: {ms:.4f} ms, plain {plain:.2f} ms, bound "
-              f"{bound:.4f} ms ({bound_by}), "
+        plain = cuda_ms(lambda: gapped_sweep.extend_dir_plain(*a, **k), 1)
+        bound, bound_by, lanes = extend_bound_ms(a, k, ik)
+        print(f"[kernel] gapped_extend {label} {dtype} max_ext="
+              f"{k['max_ext']} flag={k['flag']} B={a[0].shape[0]}: "
+              f"{ms:.4f} ms, plain {plain:.2f} ms, bound {bound:.6f} ms "
+              f"({bound_by}), {ms / bound:.1f}x bound, "
               f"{float(ik[:, 4].float().mean()):.2f} diagonals per hit, "
               f"{lanes:.2f} band lanes per diagonal, max |floats diff| "
               f"{diff:.3g} {tag}", flush=True)
         return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by,
                     err=diff)
 
-    check(len(first_sweep) == 1, "no sweep inputs captured")
-    main_rec = hold("main-path batch", *first_sweep[0])
-    first_sweep.clear()
+    check(len(first_sweep) == 1, "no gapped kernel inputs captured")
+    a0, k0 = first_sweep[0]
+    main_rec = hold("main-path batch", a0, k0)
     err = main_rec["err"]
+    first_sweep.clear()
 
     check(mid_streams and len(mid_streams[0]["q_sp"]) >= 4096 + 37,
           "too few mid-stage hits for the kernel phase")
@@ -427,7 +482,7 @@ def main() -> int:
             calls.append((a, k))
             return kernel(*a, **k)
 
-        gapped_sweep.gapped_sweep = capture
+        gapped_sweep.gapped_extend_dir = capture
         try:
             gapped.gapped_extend_flat_batch(
                 sub, qp.bufs, dp.bufs, d=p.min_accessible_length,
@@ -435,12 +490,12 @@ def main() -> int:
                 min_helix=p.min_helix_length, max_ext=max_ext, dtype=dtype,
                 device=dev)
         finally:
-            gapped_sweep.gapped_sweep = kernel
+            gapped_sweep.gapped_extend_dir = kernel
         for label, (a, k) in zip(("ragged left", "ragged right"), calls):
             err = max(err, hold(label, a, k)["err"])
     kernels = [{
-        "name": "gapped_sweep", "route": "cuda",
-        "source": "priblast_tpu_torch/csrc/gapped_sweep.cu",
+        "name": "gapped_extend", "route": "cuda",
+        "source": "priblast_tpu_torch/csrc/gapped_extend.cu",
         "replaces": "priblast_tpu/search/gapped_pl.py:51",
         "launches": launches, "max_abs_err": err,
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],

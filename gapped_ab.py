@@ -1,0 +1,174 @@
+#!/usr/bin/env python3
+"""Variants of the gapped-extension kernel against the committed one, on
+one GPU, on the main path's first gapped batch.
+
+    python3 gapped_ab.py [--batch FILE] [--reps 20] NAME=SRC[,MAXRREG] ...
+
+Each NAME=SRC is a CUDA source with the C interface of
+priblast_tpu_torch/csrc/gapped_extend.cu (for example that file after a
+one-line sed); it is built with the wrapper's nvcc flags, with
+-maxrregcount=MAXRREG in place of the wrapper's value when MAXRREG is
+given (0: no cap). The batch is the inputs of the first gapped launch of
+chip_smoke.py's workload (`db` + `ris` on cuda from --seed), saved to
+--batch and read from there when the file exists. Every variant must give
+the committed kernel's integers, floats and traceback lists on that batch
+in float32 and float64 at max_ext 32, 64 and 120, and the committed
+kernel must give its plain version's. Then all are timed with CUDA events
+in turns (forward, then backward). Prints one JSON object last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures as cf
+import ctypes
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("variants", nargs="*", metavar="NAME=SRC[,MAXRREG]")
+    ap.add_argument("--batch", default=str(HERE / "build" / "gapped_ab" /
+                                           "batch.pt"))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("gapped_ab: needs a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs
+    from priblast_tpu_torch import cli
+    from priblast_tpu_torch.ops import gapped_sweep as sop
+    from priblast_tpu_torch.ops import native
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out_dir = Path(args.batch).resolve().parent
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def build(name, spec):
+        src, _, cap = spec.partition(",")
+        flags = [f for f in sop.NVCC_FLAGS if not f.startswith("-maxrreg")]
+        if cap and int(cap) > 0:
+            flags.append(f"-maxrregcount={int(cap)}")
+        elif not cap:
+            flags = list(sop.NVCC_FLAGS)
+        so = out_dir / f"lib_{name}.so"
+        r = subprocess.run(["/usr/local/cuda/bin/nvcc", *flags, "-Xptxas",
+                            "-v", "-o", str(so), src], capture_output=True,
+                           text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{r.stderr}")
+        # registers and spill stores of the float, dropout-16, max_ext<=32
+        # instantiation (the main path's)
+        log = r.stderr.split("Compiling entry function")
+        for part in log:
+            if "extend_kernelIfLi16ELi1E" in part.split("\n")[0]:
+                regs[name] = " ".join(
+                    ln.strip() for ln in part.splitlines()
+                    if "registers" in ln or "spill" in ln)
+        lib = ctypes.CDLL(str(so))
+        for fn in ("gapped_extend_f32", "gapped_extend_f64"):
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = [ctypes.c_void_p] * 4
+        return name, lib
+
+    specs = dict(v.split("=", 1) for v in args.variants)
+    specs["committed"] = str(sop._SRC)
+    regs = {}
+    with cf.ThreadPoolExecutor(len(specs) + 2) as ex:
+        futs = [ex.submit(build, n, s) for n, s in specs.items()]
+        ex.submit(native.build).result()
+        libs = dict(f.result() for f in futs)
+    libs = {"committed": libs.pop("committed"), **libs}
+    for name, r in regs.items():
+        print(f"[build] {name}: {r}", flush=True)
+
+    batch = Path(args.batch)
+    if batch.exists():
+        a0, k0 = torch.load(batch)
+        a0 = tuple(t.cuda() for t in a0)
+    else:
+        work = out_dir / "work"
+        work.mkdir(exist_ok=True)
+        rng = np.random.default_rng(args.seed)
+        db_lens = cs.DB_LEN + rng.integers(-cs.DB_LEN // 25,
+                                           cs.DB_LEN // 25 + 1, cs.N_DB)
+        q_lens = cs.Q_LEN + rng.integers(-cs.Q_LEN // 25,
+                                         cs.Q_LEN // 25 + 1, cs.N_Q)
+        cs.write_fasta(work / "db.fa", "t", cs.markov_batch(rng, db_lens))
+        cs.write_fasta(work / "q.fa", "q", cs.markov_batch(rng, q_lens))
+        first, entry = [], sop.gapped_extend_dir
+
+        def rec(*a, **k):
+            if not first:
+                first.append((a, k))
+            return entry(*a, **k)
+
+        sop.gapped_extend_dir = rec
+        try:
+            cli.main(["db", "-i", str(work / "db.fa"), "-o",
+                      str(work / "db")])
+            cli.main(["ris", "-i", str(work / "q.fa"), "-o",
+                      str(work / "ris.txt"), "-d", str(work / "db")])
+        finally:
+            sop.gapped_extend_dir = entry
+        a0, k0 = first[0]
+        torch.save(([t.cpu() for t in a0], k0), batch)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(name, k):
+        lib = libs[name]
+        fn = (lib.gapped_extend_f32 if k.get("dtype", "float32") == "float32"
+              else lib.gapped_extend_f64)
+        kw = {x: k[x] for x in ("flag", "d", "dropout", "min_helix",
+                                "max_ext")}
+        return sop._call(fn, a0, stream, dtype=k.get("dtype", "float32"),
+                         **kw)
+
+    def same(x, y):
+        return all(torch.equal(p, q) for p, q in zip(x, y))
+
+    if not same(run("committed", k0), sop.extend_dir_plain(*a0, **k0)):
+        print("gapped_ab: the committed kernel differs from its plain "
+              "version", file=sys.stderr)
+        return 1
+    for dtype, me in (("float32", 32), ("float64", 32), ("float32", 64),
+                      ("float64", 120)):
+        k = dict(k0, dtype=dtype, max_ext=me)
+        ref = run("committed", k)
+        for name in libs:
+            if not same(run(name, k), ref):
+                print(f"gapped_ab: {name} differs from the committed kernel "
+                      f"({dtype}, max_ext={me})", file=sys.stderr)
+                return 1
+
+    times = {}
+    order = list(libs)
+    for names in (order, order[::-1]):
+        for name in names:
+            ms = cs.cuda_ms(lambda: run(name, k0), args.reps)
+            times.setdefault(name, []).append(ms)
+            print(f"[ab] {name}: {ms:.4f} ms ({card})", flush=True)
+    print(json.dumps(dict(card=card, B=int(a0[0].shape[0]),
+                          dtype=k0.get("dtype"), max_ext=k0["max_ext"],
+                          variants=specs, registers=regs, times_ms=times,
+                          at=time.strftime("%Y-%m-%dT%H:%M:%S"))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,7 +10,8 @@ few large batches instead of thousands of small calls:
   device stage 2: ungapped extension over the whole stream (flat buffers)
   host          : interaction-energy threshold
   host   stage 3: per-group sort + interaction-threshold dedup + seed bps
-  device stage 4: gapped extension DP (the CUDA sweep kernel) + traceback
+  device stage 4: gapped extension DP + traceback (one CUDA kernel per
+                 direction)
   host   stage 5: vectorized base-pair assembly + per-group finish
          (dangles, bp sort, final sort + dedup)
 
@@ -261,7 +262,11 @@ def gapped_stage(stream: HitStream, seed_bps: dict, qpack: QueryPack,
         return dict(bp_off=np.zeros(1, np.int64),
                     bp_q=np.zeros(0, np.int32), bp_db=np.zeros(0, np.int32))
     soa = stream.soa
-    per_hit = 256 * 1024 * (2 if dtype == "float64" else 1) * max_ext // 32
+    # device bytes per hit of one batch: the hit columns, both directions'
+    # results and traceback lists, and their stacks (the kernel keeps its
+    # working set in shared memory)
+    item = 8 if dtype == "float64" else 4
+    per_hit = 256 + 6 * item + 32 * (max_ext // 2 + 1)
     cap = _batch_cap(device, per_hit, 0.25, 4096, 1 << 17)
     gparts, bparts, oparts = [], [], []
     for o in range(0, n, cap):

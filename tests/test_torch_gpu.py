@@ -1,5 +1,6 @@
 """Tests of the port that need a CUDA card (marker `gpu`; they skip
-without one), plus the sweep wrapper's input checks, which run anywhere.
+without one), plus the gapped kernel wrapper's input checks, which run
+anywhere.
 
 This file imports neither jax nor priblast_tpu and uses no fixture of
 tests/conftest.py (which imports jax), so on a machine with a card and no
@@ -61,9 +62,10 @@ def tiny_mids(tmp_path_factory):
                                            ("float32", 64), ("float64", 120)])
 def test_sweep_kernel_matches_plain_version_on_the_card(tiny_mids, dtype,
                                                         max_ext):
-    """The CUDA kernel and the plain version, fed the same planes on the
-    card, give identical predecessor rows, integers and floats (max_ext=120
-    float64 needs more than 48 KB of shared memory per block)."""
+    """The CUDA kernel (one direction, characters to traceback) and the
+    plain version, fed the same hits on the card, give identical integers,
+    traceback lists and floats (max_ext=120 float64 needs more than 48 KB
+    of shared memory per block)."""
     dev = _card()
     chunks, queries, mids = tiny_mids
     qpack = tpl.QueryPack([q[0] for q in queries], [q[2] for q in queries],
@@ -72,24 +74,24 @@ def test_sweep_kernel_matches_plain_version_on_the_card(tiny_mids, dtype,
     stream = tpl._concat_groups(mids, [(q, 0) for q in range(len(mids))])
     tpl._hit_bases(stream, qpack, dbpack)
     calls = []
-    kernel = sweep_op.gapped_sweep
+    kernel = sweep_op.gapped_extend_dir
 
     def both(*a, **k):
         out = kernel(*a, **k)
-        calls.append((out, sweep_op.sweep_plain(*a, **k)))
+        calls.append((out, sweep_op.extend_dir_plain(*a, **k)))
         return out
 
     launches = sweep_op.launches
     try:
-        sweep_op.gapped_sweep = both
+        sweep_op.gapped_extend_dir = both
         tgapped.gapped_extend_flat_batch(
             {k: stream.soa[k] for k in HIT_COLS}, qpack.bufs, dbpack.bufs,
             device=dev, max_ext=max_ext, dtype=dtype, **KW)
     finally:
-        sweep_op.gapped_sweep = kernel
+        sweep_op.gapped_extend_dir = kernel
     assert sweep_op.launches == launches + 2 and len(calls) == 2
-    for (pk, ik, fk), (pp, ip, fp) in calls:
-        assert torch.equal(pk, pp) and torch.equal(ik, ip)
+    for (ik, fk, tk), (ip, fp, tp) in calls:
+        assert torch.equal(ik, ip) and torch.equal(tk, tp)
         assert torch.equal(fk, fp)
 
 
@@ -125,20 +127,31 @@ def _sweep_args(B=3, max_ext=8, dropout=4, dtype=torch.float32):
         dict(dropout=dropout, max_ext=max_ext)
 
 
+def _extend_args(B=3, n=40):
+    """Arguments of gapped_extend_dir on the CPU: B hits over flat buffers
+    of n entries."""
+    cols = [torch.full((B,), 5, dtype=torch.int64) for _ in range(3)]
+    energy = [torch.zeros(B, dtype=torch.float64) for _ in range(2)]
+    bases = [torch.ones(B, dtype=torch.int64) for _ in range(5)]
+    bufs = [torch.full((n,), 2, dtype=torch.int64) for _ in range(2)]
+    bufs += [torch.zeros(n, dtype=torch.float32) for _ in range(4)]
+    args = (*cols, *energy, torch.ones(B, dtype=torch.bool), *bases, *bufs)
+    return list(args), dict(flag=0, d=5, dropout=4, min_helix=3, max_ext=8)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "max_ext"])
 def test_sweep_wrapper_rejects_bad_inputs(bad):
-    args, kw = _sweep_args()
-    args = list(args)
+    args, kw = _extend_args()
     if bad == "dtype":
-        args[1] = args[1].long()
+        args[0] = args[0].int()                 # q_start
     elif bad == "shape":
-        args[4] = args[4][:, :3]
+        args[6] = args[6][:2]                   # qb
     elif bad == "contiguous":
-        args[2] = torch.zeros((args[2].shape[1], 3)).t()
+        args[13] = torch.zeros((40, 3))[:, 0]   # q_acc
     else:
-        kw["max_ext"] = 7
+        kw["max_ext"] = 121
     with pytest.raises(ValueError):
-        sweep_op.gapped_sweep(*args, **kw)
+        sweep_op.gapped_extend_dir(*args, **kw)
 
 
 def test_sweep_plain_on_invalid_hits_keeps_inputs():
@@ -146,7 +159,7 @@ def test_sweep_plain_on_invalid_hits_keeps_inputs():
     their inputs (the padding contract of the sweep)."""
     args, kw = _sweep_args()
     args[5][:] = torch.tensor([-3.0, 1.5])
-    pred, ints, floats = sweep_op.gapped_sweep(*args, **kw)
+    pred, ints, floats = sweep_op.sweep_plain(*args, **kw)
     assert (pred == -1).all()
     assert (ints == 0).all()
     assert torch.equal(floats, args[5])
