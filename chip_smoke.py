@@ -5,23 +5,40 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: the native host library (g++) and the gapped-extension CUDA
-     kernel (nvcc, sm_90a), both from this checkout, started together;
+  2. build: the native host library (g++) and the two CUDA kernels (nvcc,
+     sm_90a: the gapped extension and the ungapped extension), all from
+     this checkout, started together;
   3. main path at full size: a seeded workload the size of bench.py's
      (100 queries of ~1,000 nt against 20 db sequences of ~5,000 nt,
      first-order Markov sequences of transcript-like composition) through
-     `db --engine gpu` and `ris --engine gpu` on cuda; the gapped kernel's
-     launch count and the peak device memory are read around that run;
+     `db --engine gpu` and `ris --engine gpu` on cuda, whose search is the
+     fused path (host seed DFS, device expansion, the ungapped kernel,
+     threshold, host mid, the gapped kernel, host finish); both kernels'
+     launch counts, the stage seconds (`ris.fused` split into its
+     synchronised sub-stages), the peak device memory, and the mid stage's
+     seconds and CPU seconds are read around that run;
   4. the device chain against the port's host chain (native search per
      query on the same device-computed accessibilities), and against
-     `--engine exact` (the churn of the float32 device engine);
+     `--engine exact` (the churn of the float32 device engine); the mid
+     stage and the fused stage's candidate packing again on the main
+     path's inputs, warm and after the C heap's free pages went back to
+     the OS (malloc_trim), which splits their first runs' excess; one
+     pair block of the main path's wave again, at its block size, with
+     the device memory it takes per pair held to fused.PAIR_BYTES; then
+     the staged oracle
+     (seed_stage -> ungapped_stage -> threshold_stage) against the fused
+     stage on the first 20 queries, same packs and accessibilities:
+     identical post-threshold streams;
   5. the gapped kernel (one direction, from the characters to the
      traceback) against its plain PyTorch version on the card: on the
      inputs of the main path's first launch (its own batch shape, whose
      times go into the kernels' record), and on real mid-stage hits of
      phase 3 as a ragged 4096+37 batch in float32 and float64 and at
      max_ext=64; each with its time, the plain version's time and the
-     card's least time for the same work.
+     card's least time for the same work;
+  6. the ungapped kernel (a thread per hit) against its plain version on
+     the card, the same way: the main path's first launch and its first
+     4096+37 stage-1 hits, with the steps per hit.
 The last lines are the kernels' JSON record, the card line from nvidia-smi
 and {"ok": true, "device": {...}}.
 """
@@ -31,6 +48,8 @@ from __future__ import annotations
 import argparse
 import concurrent.futures as cf
 import json
+import os
+import resource
 import subprocess
 import sys
 import time
@@ -42,6 +61,12 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12,    # H100 SXM, outside the tensor cores
               "float64": 34e12}
 N_Q, Q_LEN, N_DB, DB_LEN = 100, 1000, 20, 5000
+N_STAGED = 20                      # queries of the staged-vs-fused phase
+# integer and float operations of one unpaired step of the ungapped kernel
+# (csrc/ungapped_extend.cu: position updates, 6 clamped loads with their
+# address arithmetic, the break tests, 5 float adds, the pair type, the
+# dropout test); a paired step adds its loop energy
+UNGAPPED_OPS_PER_STEP = 40
 
 
 def fail(msg: str) -> None:
@@ -120,6 +145,28 @@ def compare_lines(ref: list[str], got: list[str]):
 
 def body(path: Path) -> list[str]:
     return path.read_text().splitlines()[3:]
+
+
+def usage() -> tuple:
+    """(wall, process user CPU, process system CPU) seconds now."""
+    r = resource.getrusage(resource.RUSAGE_SELF)
+    return time.perf_counter(), r.ru_utime, r.ru_stime
+
+
+def since(u0: tuple) -> tuple:
+    return tuple(b - a for a, b in zip(u0, usage()))
+
+
+def show_usage(u: tuple) -> str:
+    return f"{u[0]:.4f} s ({u[1]:.3f} user + {u[2]:.3f} sys CPU s)"
+
+
+def trim_heap() -> None:
+    """Give the C heap's free pages back to the OS (glibc malloc_trim), so
+    that what is allocated next touches fresh pages, as on a first run."""
+    import ctypes
+
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -257,6 +304,68 @@ def extend_bound_ms(a, k, ints):
             "bytes" if t_bytes >= t_ops else "operations", lanes)
 
 
+def ungapped_bound_ms(a, steps):
+    """Least time the card could take for the ungapped extension of these
+    hits (`ungapped_extend`'s arguments `a`; `steps` = (left, right) steps
+    per hit, from search/ungapped.py:extend_steps): the larger of the bytes
+    it must move over the memory rate and its operations over the float32
+    peak rate.
+
+    Bytes, each counted once, in 32-byte sectors where they are gathered:
+    the characters and accessibility entries of every step a hit took
+    (left step s = 1..left steps: query and db characters at q_sp - s and
+    db_sp - s, q_acc at q_sp - s and q_sp - s + 1, q_cond at q_sp - s + d,
+    db_cond at the window end + s; right step s: characters at the seed's
+    end + s, q_cond there, db_acc at dbseq_start - s and - s + 1, db_cond
+    at dbseq_start - s + d); the hit's 11 input columns (9 int64, 2
+    float32) and 7 output columns (q_sp, db_sp, the new length, which is
+    q_len and db_len, dbseq_start as int64; acc_e, hyb_e, energy as
+    float32); the small tables the kernel stages in shared memory, once.
+    Operations: steps x UNGAPPED_OPS_PER_STEP.
+
+    Returns (bound ms, "bytes" or "operations")."""
+    import torch
+
+    (q_sp, db_sp, length, dbseq_start, _acc_e, _hyb_e, qb, qab, dbb, aoff,
+     coff, bufs, dbufs, d, _dropout) = a
+    q_enc, q_acc, q_cond = bufs
+    db_seq, db_acc, db_cond = dbufs
+    dev, B = q_sp.device, q_sp.shape[0]
+
+    def ragged(n):
+        """(hit, step) for steps 1..n[hit] of every hit."""
+        hit = torch.repeat_interleave(torch.arange(B, device=dev), n)
+        start = torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
+        return hit, torch.arange(hit.numel(), device=dev) - start + 1
+
+    hl, sl = ragged(steps[0])
+    hr, sr = ragged(steps[1])
+    k_r = (q_sp + length - 1)[hr] + sr                # right query pos
+    reads = {
+        "q_enc": (q_enc, [(qb + q_sp)[hl] - sl, qb[hr] + k_r]),
+        "db_seq": (db_seq, [(dbb + db_sp)[hl] - sl,
+                            (dbb + db_sp + length - 1)[hr] + sr]),
+        "q_acc": (q_acc, [(qab + q_sp)[hl] - sl, (qab + q_sp)[hl] - sl + 1]),
+        "q_cond": (q_cond, [(qab + q_sp)[hl] - sl + d, qab[hr] + k_r]),
+        "db_acc": (db_acc, [(aoff + dbseq_start)[hr] - sr,
+                            (aoff + dbseq_start)[hr] - sr + 1]),
+        "db_cond": (db_cond, [(coff + dbseq_start + length - 1)[hl] + sl,
+                              (coff + dbseq_start)[hr] - sr + d]),
+    }
+    nbytes = 0
+    for buf, poss in reads.values():
+        pos = torch.cat(poss).clamp(0, buf.shape[0] - 1)
+        nbytes += 32 * int(torch.unique(pos * buf.element_size() // 32)
+                           .numel())
+    nbytes += B * (9 * 8 + 2 * 4) + B * (4 * 8 + 3 * 4)
+    nbytes += 4 * (25 + 7 + 49 + 175 + 31)
+    steps = hl.numel() + hr.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = steps * UNGAPPED_OPS_PER_STEP / PEAK_FLOPS["float32"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -276,7 +385,9 @@ def main() -> int:
     from priblast_tpu_torch.models import ris as ris_model
     from priblast_tpu_torch.models import ris_gpu
     from priblast_tpu_torch.ops import gapped_sweep, native
-    from priblast_tpu_torch.search import gapped, pipeline
+    from priblast_tpu_torch.ops import ungapped_extend as uop
+    from priblast_tpu_torch.search import fused, gapped, pipeline, seed
+    from priblast_tpu_torch.search import ungapped as ung
     from priblast_tpu_torch.utils import alphabet, fasta, store
     from priblast_tpu_torch.utils import profiling as prof
     from priblast_tpu_torch.utils.params import RisParams
@@ -298,12 +409,15 @@ def main() -> int:
         out = fn()
         return out, time.perf_counter() - t0
 
-    with cf.ThreadPoolExecutor(2) as ex:
+    with cf.ThreadPoolExecutor(3) as ex:
         fut_n = ex.submit(timed, native.build)
         fut_k = ex.submit(timed, gapped_sweep.build)
-        (so_n, t_n), (so_k, t_k) = fut_n.result(), fut_k.result()
+        fut_u = ex.submit(timed, uop.build)
+        (so_n, t_n), (so_k, t_k), (so_u, t_u) = (
+            fut_n.result(), fut_k.result(), fut_u.result())
     print(f"[build] native {so_n.name} {t_n:.1f}s | gapped_extend "
-          f"{so_k.name} {t_k:.1f}s", flush=True)
+          f"{so_k.name} {t_k:.1f}s | ungapped_extend {so_u.name} "
+          f"{t_u:.1f}s", flush=True)
 
     # ---- 3. main path at full size -----------------------------------------
     work = REPO / "build" / "chip_smoke"
@@ -315,13 +429,18 @@ def main() -> int:
     write_fasta(work / "q.fa", "q", markov_batch(rng, q_lens))
 
     # instrumentation: where accessibility ran, the query accessibilities
-    # the device chain used, the mid-stage streams it extended, and the
-    # inputs of the first gapped launch (the main path's own batch shape)
-    acc_devices, q_access, mid_streams, first_sweep = set(), {}, [], []
+    # the device chain used, the mid stage's inputs and cost, the
+    # mid-stage streams it extended, and the inputs of the first fused
+    # stage and gapped and ungapped launches (the main path's own shapes)
+    acc_devices, q_access, mid_streams, mid_runs = set(), {}, [], []
+    first_sweep, first_ungapped, first_fused = [], [], []
     run0 = batched.BatchedRaccess.run
     access0 = ris_gpu._accessibility_batched
     gstage0 = pipeline.gapped_stage
     kernel = gapped_sweep.gapped_extend_dir
+    ukernel = uop.ungapped_extend
+    fstage0 = fused.fused_stage
+    mid0 = pipeline.mid_stage
 
     def run_rec(self, codes, lengths):
         acc_devices.add(str(self.device))
@@ -341,15 +460,34 @@ def main() -> int:
             first_sweep.append((a, k))
         return kernel(*a, **k)
 
+    def ungapped_rec(*a):
+        if not first_ungapped:
+            first_ungapped.append(a)
+        return ukernel(*a)
+
+    def fstage_rec(*a, **k):
+        if not first_fused:
+            first_fused.append((a, k))
+        return fstage0(*a, **k)
+
+    def mid_rec(stream, *a, **k):
+        u0 = usage()
+        out = mid0(stream, *a, **k)
+        mid_runs.append((stream, a, k, since(u0)))
+        return out
+
     batched.BatchedRaccess.run = run_rec
     ris_gpu._accessibility_batched = access_rec
     pipeline.gapped_stage = gstage_rec
     gapped_sweep.gapped_extend_dir = sweep_rec
+    uop.ungapped_extend = ungapped_rec
+    fused.fused_stage = fstage_rec
+    pipeline.mid_stage = mid_rec
 
     db_gpu, out_gpu = work / "db_gpu", work / "ris_gpu.txt"
     prof.reset()
     torch.cuda.reset_peak_memory_stats()
-    gapped_sweep.launches = 0
+    gapped_sweep.launches = uop.launches = 0
     t0 = time.perf_counter()
     cli.main(["db", "-i", str(work / "db.fa"), "-o", str(db_gpu)])
     t_db = time.perf_counter() - t0
@@ -357,16 +495,22 @@ def main() -> int:
     cli.main(["ris", "-i", str(work / "q.fa"), "-o", str(out_gpu), "-d",
               str(db_gpu)])
     t_ris = time.perf_counter() - t0
-    launches = gapped_sweep.launches
+    launches, ulaunches = gapped_sweep.launches, uop.launches
     stages = prof.snapshot()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     batched.BatchedRaccess.run = run0
     ris_gpu._accessibility_batched = access0
     pipeline.gapped_stage = gstage0
     gapped_sweep.gapped_extend_dir = kernel
+    uop.ungapped_extend = ukernel
+    fused.fused_stage = fstage0
+    pipeline.mid_stage = mid0
 
     check(acc_devices == {"cuda"}, f"accessibility ran on {acc_devices}")
+    check("ris.fused.ungapped" in stages,
+          f"the main path did not run the fused stage: {sorted(stages)}")
     check(launches > 0, "the gapped kernel was never launched")
+    check(ulaunches > 0, "the ungapped kernel was never launched")
     gpu_lines = body(out_gpu)
     check(len(gpu_lines) > 100, f"only {len(gpu_lines)} hits")
     for line in gpu_lines:
@@ -375,8 +519,9 @@ def main() -> int:
     tag = f"({card})"
     print(f"[main] db {db_nt} nt in {t_db:.3f}s = {db_nt / t_db:.1f} nt/s; "
           f"ris {N_Q} queries in {t_ris:.3f}s = {N_Q / t_ris:.4f} q/s; "
-          f"{len(gpu_lines)} hits; gapped kernel launches {launches}; peak device "
-          f"memory {peak_gb:.2f} GB {tag}", flush=True)
+          f"{len(gpu_lines)} hits; kernel launches: ungapped {ulaunches}, "
+          f"gapped {launches}; peak device memory {peak_gb:.2f} GB {tag}",
+          flush=True)
     print("[main] stage seconds " + json.dumps(
         {k: round(v, 4) for k, v in sorted(stages.items())}) + f" {tag}",
         flush=True)
@@ -431,6 +576,83 @@ def main() -> int:
     check(frac >= 0.99, f"gpu/exact agreement {frac} < 0.99")
     check(de <= 1e-2, f"gpu/exact energy diff {de} > 1e-2")
 
+    # ---- 4c. the first runs' excess: the mid stage and the candidate
+    # packing again on the main path's inputs, warm, then after the C
+    # heap's free pages went back to the OS
+    check(len(mid_runs) >= 1, "no mid stage captured")
+    check(len(first_fused) == 1, "no fused stage inputs captured")
+    m_stream, m_a, m_k, m_first = mid_runs[0]
+    (f_p, f_cands, f_qp, f_dp), _fk = first_fused[0]
+    again = {}
+    for label in ("again", "after malloc_trim"):
+        if label != "again":
+            trim_heap()
+        u0 = usage()
+        mid0(m_stream, *m_a, **m_k)
+        again["mid " + label] = since(u0)
+        u0 = usage()
+        wb = fused._WaveBuffers(f_cands, f_qp, f_dp, dev)
+        torch.cuda.synchronize()
+        again["pack " + label] = since(u0)
+    print(f"[first use] the main path's mid stage ({len(mid_runs)} wave(s), "
+          f"first {len(m_stream)} hits) {show_usage(m_first)}; "
+          + "; ".join(f"{k} {show_usage(u)}" for k, u in again.items())
+          + f"; main path's ris.fused.pack {stages['ris.fused.pack']:.4f} s "
+          f"({wb.tot} pairs) {tag}", flush=True)
+    mid_runs.clear()
+
+    # ---- 4d. one pair block of the main path's wave again, at the main
+    # path's block size: its device memory per pair and its sub-stages
+    block = min(fused.block_cap(dev), wb.tot)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prof.reset()
+    kept = len(fused.run_block(f_p, 0, block, wb, f_qp, f_dp, dev)["pid"])
+    per_pair = (torch.cuda.max_memory_allocated() - base) / block
+    print(f"[fused] one pair block of the main path's wave again: {block} of "
+          f"its {wb.tot} pairs, {kept} hits kept; peak device memory "
+          f"{per_pair:.1f} B per pair (PAIR_BYTES {fused.PAIR_BYTES}); "
+          "seconds " + json.dumps({k: round(v, 4) for k, v in
+                                   sorted(prof.snapshot().items())})
+          + f" {tag}", flush=True)
+    check(per_pair <= fused.PAIR_BYTES,
+          f"a pair block takes {per_pair:.1f} B per pair, more than "
+          f"fused.PAIR_BYTES = {fused.PAIR_BYTES}")
+    del wb
+    first_fused.clear()
+
+    # ---- 4e. the staged oracle against the fused stage, first queries ---
+    queries = []
+    for idx in order[:N_STAGED]:
+        q_enc = alphabet.encode_query(seqs[idx], p.repeat_flag)
+        queries.append((q_enc, native.sa_build(q_enc), *q_access[idx]))
+    dp = pipeline.DbPack(chunks, device=dev)
+    qp = pipeline.QueryPack(*([q[k] for q in queries] for k in (0, 2, 3, 1)),
+                            device=dev)
+    threads = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    s_st = pipeline.seed_stage(p, chunks, queries, threads)
+    pipeline._hit_bases(s_st, qp, dp)
+    pipeline.ungapped_stage(s_st, qp, dp, p, device=dev)
+    s_st = pipeline.threshold_stage(s_st, p)
+    t_st = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_fu = fused.fused_stage(p, seed.seed_candidates(p, chunks, queries,
+                                                     threads),
+                             qp, dp, device=dev)
+    t_fu = time.perf_counter() - t0
+    check(len(s_fu) > 0, "no post-threshold hits in the staged/fused phase")
+    check(s_st.groups == s_fu.groups, "staged and fused groups differ")
+    for k in pipeline.STREAM_KEYS:
+        check(s_st.soa[k].dtype == s_fu.soa[k].dtype
+              and np.array_equal(s_st.soa[k], s_fu.soa[k]),
+              f"staged and fused streams differ in {k}")
+    print(f"[staged] {N_STAGED} queries: the staged oracle and the fused "
+          f"stage give identical post-threshold streams ({len(s_fu)} hits, "
+          f"{len(s_fu.groups)} groups, all fields); staged {t_st:.3f}s, "
+          f"seed DFS + fused stage {t_fu:.3f}s {tag}", flush=True)
+
     # ---- 5. the gapped kernel vs its plain version, on the card ---------
     def hold(label, a, k):
         """Kernel vs plain version on the same inputs: integers and
@@ -467,11 +689,10 @@ def main() -> int:
     check(mid_streams and len(mid_streams[0]["q_sp"]) >= 4096 + 37,
           "too few mid-stage hits for the kernel phase")
     soa = mid_streams[0]
-    qp = pipeline.QueryPack([alphabet.encode_query(seqs[i], p.repeat_flag)
-                             for i in order],
-                            [q_access[i][0] for i in order],
-                            [q_access[i][1] for i in order], device=dev)
-    dp = pipeline.DbPack(chunks, device=dev)
+    encs = [alphabet.encode_query(seqs[i], p.repeat_flag) for i in order]
+    qp = pipeline.QueryPack(encs, [q_access[i][0] for i in order],
+                            [q_access[i][1] for i in order],
+                            [native.sa_build(e) for e in encs], device=dev)
     keys = (*pipeline.STREAM_KEYS, "qb", "qab", "dbb", "aoff", "coff")
     sub = {k: soa[k][:4096 + 37] for k in keys}
     for dtype, max_ext in (("float32", 32), ("float64", 32),
@@ -493,6 +714,42 @@ def main() -> int:
             gapped_sweep.gapped_extend_dir = kernel
         for label, (a, k) in zip(("ragged left", "ragged right"), calls):
             err = max(err, hold(label, a, k)["err"])
+    # ---- 6. the ungapped kernel vs its plain version, on the card -------
+    def hold_ungapped(label, a):
+        """Kernel vs plain version on the same inputs: every column
+        identical, integers and float32 energies; then both timed."""
+        got = ukernel(*a)
+        ref = uop.ungapped_extend_flat(*a)
+        steps = ung.extend_steps(*a)
+        torch.cuda.synchronize()
+        check(got.keys() == ref.keys(), f"ungapped keys differ ({label})")
+        for key in uop.INT_KEYS:
+            check(torch.equal(got[key], ref[key]),
+                  f"ungapped {key} differs ({label})")
+        diff = max(float((got[key] - ref[key]).abs().max())
+                   for key in uop.FLOAT_KEYS)
+        check(diff == 0, f"ungapped floats differ by {diff} ({label})")
+        ms = cuda_ms(lambda: ukernel(*a), 20)
+        plain = cuda_ms(lambda: uop.ungapped_extend_flat(*a), 1)
+        bound, bound_by = ungapped_bound_ms(a, steps)
+        steps = (steps[0] + steps[1]).float()
+        print(f"[kernel] ungapped_extend {label} B={a[0].shape[0]}: "
+              f"{ms:.4f} ms, plain {plain:.2f} ms, bound {bound:.6f} ms "
+              f"({bound_by}), {ms / bound:.1f}x bound, steps per hit mean "
+              f"{float(steps.mean()):.2f} max {int(steps.max())}, max "
+              f"|floats diff| {diff:.3g} {tag}", flush=True)
+        return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by,
+                    err=diff)
+
+    check(len(first_ungapped) == 1, "no ungapped kernel inputs captured")
+    ua = first_ungapped[0]
+    urec = hold_ungapped("main-path batch", ua)
+    check(ua[0].shape[0] >= 4096 + 37,
+          "too few stage-1 hits for the ragged ungapped batch")
+    ubatch = tuple(x[:4096 + 37].contiguous() if torch.is_tensor(x) else x
+                   for x in ua)
+    uerr = max(urec["err"], hold_ungapped("ragged", ubatch)["err"])
+
     kernels = [{
         "name": "gapped_extend", "route": "cuda",
         "source": "priblast_tpu_torch/csrc/gapped_extend.cu",
@@ -500,6 +757,15 @@ def main() -> int:
         "launches": launches, "max_abs_err": err,
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "ungapped_extend", "route": "cuda",
+        "source": "priblast_tpu_torch/csrc/ungapped_extend.cu",
+        "replaces": "priblast_tpu/search/ungapped.py:94, "
+                    "priblast_tpu/search/uwin.py:261",
+        "launches": ulaunches, "max_abs_err": uerr,
+        "ms": urec["ms"], "plain_ms": urec["plain_ms"],
+        "bound_ms": urec["bound_ms"], "bound_by": urec["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

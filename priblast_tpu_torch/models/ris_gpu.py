@@ -2,11 +2,12 @@
 
 Per wave of queries: accessibility runs on the device in length-bucketed
 batches (the per-query hot DP, reference: src/rna_interaction_search.cpp:175),
-then the staged cross-query search pipeline (search/pipeline.py) extends
-every (query, chunk) hit stream with the device ungapped and gapped stages
-— host threads run the seed / dedup / finish stages. Hit semantics are
-identical to the exact engine; energies carry the device dtype's
-accumulation noise (use --engine exact for byte parity).
+then the cross-query search pipeline (search/pipeline.py) runs the fused
+path: host seed DFS, then expansion, the ungapped kernel and the threshold
+on the device (search/fused.py), host dedup, the gapped kernel on the
+device and the host finish. Hit semantics are identical to the exact
+engine; energies carry the device dtype's accumulation noise (use
+--engine exact for byte parity).
 
 A failure on the device is not retried on the host: it ends the run.
 """
@@ -91,7 +92,8 @@ def _run_wave(p, chunks, names, seqs, lengths, wave, engine, dbpack,
         q_acc, q_cond = accs[idx]
         queries.append((q_enc, native.sa_build(q_enc), q_acc, q_cond))
     qpack = pl.QueryPack([q[0] for q in queries], [q[2] for q in queries],
-                         [q[3] for q in queries], device=device)
+                         [q[3] for q in queries], [q[1] for q in queries],
+                         device=device)
     stream, finished = pl.search_all(p, chunks, queries, qpack, dbpack,
                                      device=device, threads=threads,
                                      dtype=p.dtype)

@@ -34,15 +34,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from priblast_tpu_torch.ops import nvcc
 from priblast_tpu_torch.utils import thermo
 
 BIG = 10_000_000  # "unbounded" boundary sentinel (reference MAX_EXTENSION,
@@ -68,7 +65,6 @@ N_WORDS = 50120         # int16 words, padded to a multiple of 8
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "gapped_extend.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-maxrregcount=64", "-shared",
               "-Xcompiler", "-fPIC"]
@@ -85,21 +81,7 @@ def combos(dropout: int):
 def build() -> Path:
     """Compile csrc/gapped_extend.cu into build/kernels/ with nvcc (once
     per source version)."""
-    tag = hashlib.sha256(_SRC.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libgapped_extend_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
-        tmp = Path(td) / out.name
-        r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{r.stderr}")
-        tmp.replace(out)
-    return out
+    return nvcc.build(_SRC, NVCC_FLAGS)
 
 
 @functools.lru_cache(maxsize=1)
@@ -347,23 +329,6 @@ _BUFS = (("q_enc", torch.int64), ("db_seq", torch.int64),
          ("db_acc", torch.float32), ("db_cond", torch.float32))
 
 
-def _check(t: torch.Tensor, name: str, shape, dtype, device,
-           contiguous: bool = True) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise ValueError(f"{name} must be a tensor")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if dtype is not None and t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if t.dim() != 1:
-        raise ValueError(f"{name} must be 1-D")
-    if contiguous and not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def gapped_extend_dir(q_start, db_start, id_anchor, energy0, acc0, valid,
                       qb, qab, dbb, aoff, coff, q_enc, db_seq, q_acc, q_cond,
                       db_acc, db_cond, *, flag: int, d: int, dropout: int,
@@ -388,15 +353,15 @@ def gapped_extend_dir(q_start, db_start, id_anchor, energy0, acc0, valid,
     cols = dict(zip(_HIT_COLS, (q_start, db_start, id_anchor, qb, qab, dbb,
                                 aoff, coff)))
     for name, t in cols.items():
-        _check(t, name, (B,), torch.int64, dev)
+        nvcc.check_tensor(t, name, (B,), torch.int64, dev)
     for name, t in (("energy0", energy0), ("acc0", acc0)):
-        _check(t, name, (B,), None, dev, contiguous=False)
+        nvcc.check_tensor(t, name, (B,), None, dev, contiguous=False)
         if not t.is_floating_point():
             raise ValueError(f"{name} must be floating point")
-    _check(valid, "valid", (B,), torch.bool, dev)
+    nvcc.check_tensor(valid, "valid", (B,), torch.bool, dev)
     bufs = (q_enc, db_seq, q_acc, q_cond, db_acc, db_cond)
     for (name, bdt), t in zip(_BUFS, bufs):
-        _check(t, name, None, bdt, dev)
+        nvcc.check_tensor(t, name, None, bdt, dev)
         if t.shape[0] == 0:
             raise ValueError(f"{name} is empty")
     args = (q_start, db_start, id_anchor, energy0, acc0, valid, qb, qab, dbb,

@@ -5,10 +5,11 @@ The reference's per-(query, db-page) kernel chain
 batch hits ACROSS every (query, chunk) pair, so the device stages see a
 few large batches instead of thousands of small calls:
 
-  host   stage 1: seed search + SA-interval expansion, per (query, chunk)
-         (native C++, thread pool) -> one global hit stream tagged by group
-  device stage 2: ungapped extension over the whole stream (flat buffers)
-  host          : interaction-energy threshold
+  host   stage 1: seed DFS per (query, chunk) (native C++, thread pool)
+  device stage 2: seed expansion, ungapped extension (one CUDA kernel, a
+                 thread per hit) and the interaction-energy threshold, per
+                 block of candidate pairs (search/fused.py) -> one global
+                 hit stream tagged by group
   host   stage 3: per-group sort + interaction-threshold dedup + seed bps
   device stage 4: gapped extension DP + traceback (one CUDA kernel per
                  direction)
@@ -21,6 +22,11 @@ device tensors with one zero pad entry before each region (the pad
 reproduces the reference's left-boundary stop, since its encodings already
 carry a trailing sentinel). Hits carry base offsets into those buffers;
 hit coordinates stay query-/chunk-local, as in the reference.
+
+seed_stage -> ungapped_stage -> threshold_stage compute the same stream
+in separate steps (native stage-1 hits, the kernel over the whole stream,
+a host threshold): the tests and chip_smoke.py hold the fused stage
+against them.
 
 Hit semantics are identical to the exact engine; energies carry the device
 dtype's accumulation noise.
@@ -55,19 +61,29 @@ def _pack_regions(arrays, np_dtype, pad: int = 1, tail: int = 8):
 
 class QueryPack:
     """Flat device buffers for a set of queries: encoded sequences (int64
-    codes) and float32 accessibility / conditional accessibility."""
+    codes), float32 accessibility / conditional accessibility, and the
+    queries' suffix arrays (int64, no pad, bases `sa_base`), which the
+    fused stage (search/fused.py) expands from."""
 
-    def __init__(self, q_encs, q_accs, q_conds, *, device):
+    def __init__(self, q_encs, q_accs, q_conds, q_sas, *, device):
         enc, self.enc_base = _pack_regions(q_encs, np.int64)
         acc, self.acc_base = _pack_regions(q_accs, np.float32)
         cond, cond_base = _pack_regions(q_conds, np.float32)
         assert np.array_equal(self.acc_base, cond_base)
         self.bufs = tuple(torch.as_tensor(x, device=device)
                           for x in (enc, acc, cond))
+        sa, self.sa_base = _pack_regions(q_sas, np.int64, pad=0)
+        self.sa = torch.as_tensor(sa, device=device)
 
 
 class DbPack:
-    """Flat device buffers for all database chunks."""
+    """Flat device buffers for all database chunks: sequences and
+    accessibilities; the chunks' suffix arrays (bases `sa_base`); and dense
+    position -> owning-sequence maps on the `seq_base` bases (pos_sid; pos_ls
+    = the sequence's length + start position; pos_aoff / pos_coff = the
+    absolute offsets of its accessibility arrays), which replace the
+    reference's binary search over start positions
+    (src/seed_search.cpp:101-141) with one read per field."""
 
     def __init__(self, chunks, *, device):
         seq, self.seq_base = _pack_regions([c.seqs for c in chunks],
@@ -83,6 +99,23 @@ class DbPack:
                              for ci, c in enumerate(chunks)]
         self.bufs = tuple(torch.as_tensor(x, device=device)
                           for x in (seq, acc, cond))
+        sa, self.sa_base = _pack_regions([c.suffix_array for c in chunks],
+                                         np.int64, pad=0)
+        maps = {k: [] for k in ("sid", "ls", "aoff", "coff")}
+        for ci, c in enumerate(chunks):
+            sid = np.searchsorted(c.start_pos, np.arange(len(c.seqs)),
+                                  side="right") - 1
+            sid = np.clip(sid, 0, c.n_seqs - 1)
+            maps["sid"].append(sid)
+            maps["ls"].append(c.seq_sizes[sid].astype(np.int64)
+                              + c.start_pos[sid])
+            maps["aoff"].append(self.abs_acc_off[ci][sid])
+            maps["coff"].append(self.abs_cond_off[ci][sid])
+        self.sa = torch.as_tensor(sa, device=device)
+        for k, arrs in maps.items():
+            flat, base = _pack_regions(arrs, np.int64)
+            assert np.array_equal(base, self.seq_base)
+            setattr(self, f"pos_{k}", torch.as_tensor(flat, device=device))
 
 
 @dataclass
@@ -173,8 +206,9 @@ def _batch_cap(device, bytes_per_item: int, frac: float, lo: int,
 
 def ungapped_stage(stream: HitStream, qpack: QueryPack, dbpack: DbPack, p,
                    *, device) -> None:
-    """Device ungapped extension over the whole stream, in place."""
-    from priblast_tpu_torch.search.ungapped import ungapped_extend_flat
+    """Device ungapped extension over the whole stream, in place: the CUDA
+    kernel on the card, its plain version on the CPU."""
+    from priblast_tpu_torch.ops import ungapped_extend as uop
 
     n = len(stream)
     if n == 0:
@@ -189,7 +223,7 @@ def ungapped_stage(stream: HitStream, qpack: QueryPack, dbpack: DbPack, p,
         def put(k, dtype=torch.int64):
             return torch.as_tensor(soa[k][sl], device=device).to(dtype)
 
-        res = ungapped_extend_flat(
+        res = uop.ungapped_extend(
             put("q_sp"), put("db_sp"), put("q_len"), put("dbseq_start"),
             put("acc_e", torch.float32), put("hyb_e", torch.float32),
             *(put(k) for k in _BASE_KEYS),
@@ -218,8 +252,11 @@ def threshold_stage(stream: HitStream, p) -> HitStream:
     other hits' dedup decisions, so pre-filtering is semantics-preserving."""
     if len(stream) == 0:
         return stream
-    return filter_stream(
-        stream, stream.soa["energy"] <= p.interaction_energy_threshold)
+    # compared in float64, as the reference compares its double energies:
+    # NumPy compares a float32 array with a Python float in float32,
+    # against the threshold rounded to float32
+    energy = stream.soa["energy"].astype(np.float64)
+    return filter_stream(stream, energy <= p.interaction_energy_threshold)
 
 
 def mid_stage(stream: HitStream, queries, chunks, p, threads: int = 1):
@@ -386,17 +423,28 @@ def finish_stage(stream: HitStream, bps: dict, queries, chunks, p,
 def search_all(p, chunks, queries, qpack: QueryPack, dbpack: DbPack, *,
                device, threads: int = 1, max_ext: int = 32,
                dtype: str = "float32"):
-    """The staged pipeline: per-(query, chunk) native stage-1 hits, device
-    ungapped extension over the full stream, host threshold and mid stage,
-    device gapped extension, host finish. Returns (stream, results) where
+    """The search chain over every (query, chunk) pair: host seed DFS, then
+    expansion, ungapped extension and threshold on the device
+    (search/fused.py), then finish_search. Returns (stream, results) where
     results is the per-group finished SoA list aligned with stream.groups.
     queries: list of (q_enc, q_sa, q_acc, q_cond)."""
+    from priblast_tpu_torch.search import fused, seed
+
     with prof.stage("ris.seed"):
-        stream = seed_stage(p, chunks, queries, threads)
-        _hit_bases(stream, qpack, dbpack)
-    with prof.stage("ris.ungapped", device):
-        ungapped_stage(stream, qpack, dbpack, p, device=device)
-        stream = threshold_stage(stream, p)
+        cands = seed.seed_candidates(p, chunks, queries, threads)
+    with prof.stage("ris.fused", device):
+        stream = fused.fused_stage(p, cands, qpack, dbpack, device=device)
+    return finish_search(stream, p, chunks, queries, qpack, dbpack,
+                         device=device, threads=threads, max_ext=max_ext,
+                         dtype=dtype)
+
+
+def finish_search(stream: HitStream, p, chunks, queries, qpack: QueryPack,
+                  dbpack: DbPack, *, device, threads: int = 1,
+                  max_ext: int = 32, dtype: str = "float32"):
+    """The chain after the threshold, on a post-threshold stream: the host
+    mid stage, the device gapped extension and the host finish. Returns
+    (stream, results) as search_all."""
     with prof.stage("ris.mid"):
         stream, seed_bps = mid_stage(stream, queries, chunks, p, threads)
         _hit_bases(stream, qpack, dbpack)

@@ -1,4 +1,6 @@
-"""Batched ungapped extension on the device (PyTorch), over flat buffers.
+"""Batched ungapped extension over flat buffers: the plain PyTorch version
+of the CUDA kernel csrc/ungapped_extend.cu (wrapper:
+ops/ungapped_extend.py, which calls this function for CPU tensors).
 
 The per-hit left/right greedy extension scans of the reference
 (src/ungapped_extension.cpp:30-155) run as lockstep batched loops over a
@@ -109,9 +111,22 @@ def ungapped_extend_flat(q_sp, db_sp, length, dbseq_start, acc_e, hyb_e,
         accessibility arrays.
     bufs = (q_enc_flat, q_acc_flat, q_cond_flat);
     dbufs = (db_seq_flat, db_acc_flat, db_cond_flat).
-    Returns a dict of [B] tensors: q_sp, db_sp, q_len, db_len,
-    dbseq_start, acc_e, hyb_e, energy.
+    Returns a dict of [B] tensors: q_sp, db_sp, q_len, db_len (one
+    tensor), dbseq_start, acc_e, hyb_e, energy.
     """
+    return _extend(q_sp, db_sp, length, dbseq_start, acc_e, hyb_e, qb, qab,
+                   dbb, aoff, coff, bufs, dbufs, d, dropout)[0]
+
+
+def extend_steps(*args):
+    """The steps each phase of `ungapped_extend_flat(*args)` takes past its
+    start, per hit: (left, right) int64 [B], the kernel's work per hit."""
+    return _extend(*args)[1:]
+
+
+def _extend(q_sp, db_sp, length, dbseq_start, acc_e, hyb_e, qb, qab, dbb,
+            aoff, coff, bufs, dbufs, d: int, dropout: int):
+    """`ungapped_extend_flat`'s dict, and the left and right step counts."""
     t = _tables(q_sp.device)
     qbuf, q_acc, q_cond = bufs
     dbuf, db_acc, db_cond = dbufs
@@ -133,12 +148,14 @@ def ungapped_extend_flat(q_sp, db_sp, length, dbseq_start, acc_e, hyb_e,
     e, a, hh = energy0.clone(), acc_e.clone(), hyb_e.clone()
     min_e, min_a, min_h = energy0.clone(), acc_e.clone(), hyb_e.clone()
     min_p, min_q = q_sp.clone(), db_sp.clone()
+    steps_l = torch.zeros_like(q_sp)
     active = torch.ones_like(q_sp, dtype=torch.bool)
     while bool(active.any()):
         i_n, j_n, id_n = i - 1, j - 1, id_end + 1
         brk = ((i_n < 0) | (j_n < 0) | (_at(qbuf, qb + i_n) < 2)
                | (_at(dbuf, dbb + j_n) < 2))
         act = active & ~brk
+        steps_l += act
 
         dacc = (_at(q_acc, qab + i_n) - _at(q_acc, qab + i_n + 1)
                 + _at(q_cond, qab + i_n + d) + _at(db_cond, coff + id_n))
@@ -176,11 +193,13 @@ def ungapped_extend_flat(q_sp, db_sp, length, dbseq_start, acc_e, hyb_e,
     r, s = k.clone(), l.clone()
     e, a, hh = min_e.clone(), min_a.clone(), min_h.clone()
     min_r, min_ids = k.clone(), dbseq_start.clone()
+    steps_r = torch.zeros_like(q_sp)
     active = torch.ones_like(q_sp, dtype=torch.bool)
     while bool(active.any()):
         k_n, l_n, ids_n = k + 1, l + 1, ids - 1
         brk = (_at(qbuf, qb + k_n) < 2) | (_at(dbuf, dbb + l_n) < 2)
         act = active & ~brk
+        steps_r += act
 
         dacc = (_at(q_cond, qab + k_n) + _at(db_acc, aoff + ids_n)
                 - _at(db_acc, aoff + ids_n + 1)
@@ -215,4 +234,4 @@ def ungapped_extend_flat(q_sp, db_sp, length, dbseq_start, acc_e, hyb_e,
     new_len = min_r - min_p + 1
     return dict(q_sp=min_p, db_sp=min_q, q_len=new_len, db_len=new_len,
                 dbseq_start=min_ids, acc_e=min_a, hyb_e=min_h,
-                energy=min_e)
+                energy=min_e), steps_l, steps_r

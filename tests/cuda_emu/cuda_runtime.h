@@ -1,11 +1,12 @@
-// A CPU stand-in for the CUDA runtime and device built-ins that
-// priblast_tpu_torch/csrc/gapped_extend.cu uses, so that g++ can compile
-// that source and run it: tests/test_torch_kernel_emu.py holds the result
-// against the kernel's plain PyTorch version on a machine without a card.
+// A CPU stand-in for the CUDA runtime and device built-ins that the
+// kernels in priblast_tpu_torch/csrc/ use, so that g++ can compile those
+// sources and run them: tests/test_torch_kernel_emu.py holds the results
+// against the kernels' plain PyTorch versions on a machine without a card.
 //
-// One warp per block: every lane is a std::thread, and __syncwarp,
+// Every thread of a block is a std::thread, and __syncwarp,
 // __syncthreads, the ballots, the reductions and the shuffles meet at one
-// barrier. The test
+// barrier (the warp-level ones are right for one warp per block, the
+// gapped kernel's emulated launch shape). The test
 // rewrites the kernel launch `k<<<grid, threads, smem, stream>>>(p)` into
 // emu_launch(k, grid, threads, smem, p), which runs the blocks one after
 // another, and defines the dynamic shared memory array in the kernel's
@@ -110,6 +111,7 @@ template <class T> T __shfl_xor_sync(unsigned, T v, int off) {
   return r;
 }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+template <class T> T __ldg(const T *p) { return *p; }
 inline float __int_as_float(int x) {
   float f;
   std::memcpy(&f, &x, 4);

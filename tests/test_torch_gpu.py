@@ -1,6 +1,5 @@
 """Tests of the port that need a CUDA card (marker `gpu`; they skip
-without one), plus the gapped kernel wrapper's input checks, which run
-anywhere.
+without one), plus the kernel wrappers' input checks, which run anywhere.
 
 This file imports neither jax nor priblast_tpu and uses no fixture of
 tests/conftest.py (which imports jax), so on a machine with a card and no
@@ -18,6 +17,7 @@ from priblast_tpu_torch import cli
 from priblast_tpu_torch.models import db as tdb
 from priblast_tpu_torch.ops import gapped_sweep as sweep_op
 from priblast_tpu_torch.ops import native
+from priblast_tpu_torch.ops import ungapped_extend as ungapped_op
 from priblast_tpu_torch.search import gapped as tgapped
 from priblast_tpu_torch.search import pipeline as tpl
 from priblast_tpu_torch.utils import alphabet, fasta, store
@@ -37,7 +37,8 @@ def _card():
 
 @pytest.fixture(scope="module")
 def tiny_mids(tmp_path_factory):
-    """Mid-stage hits of the tiny goldens (native stage 2 + chain_mid)."""
+    """Mid-stage hits of the tiny goldens (native stage 2 + chain_mid), and
+    their stage-1 hits (native stage 1)."""
     db_name = str(tmp_path_factory.mktemp("torch_gpu") / "tiny_db")
     tdb.run(DbParams(input=str(DATA / "tiny_db.fa"), db_name=db_name,
                      engine="exact"))
@@ -45,16 +46,18 @@ def tiny_mids(tmp_path_factory):
     p = RisParams(input="x", output="y", db_name=db_name, engine="exact")
     p.load_db_params()
     _names, seqs = fasta.read_fasta(DATA / "tiny_q.fa")
-    queries, mids = [], []
+    queries, mids, pres = [], [], []
     for seq in seqs:
         q_acc, q_cond = native.raccess(alphabet.access_codes(seq), 70, 5)
         q_enc = alphabet.encode_query(seq, p.repeat_flag)
         q_sa = native.sa_build(q_enc)
         queries.append((q_enc, q_sa, q_acc, q_cond))
+        pres.append(native.search_chunk(q_enc, q_sa, q_acc, q_cond,
+                                        chunks[0], p, stage=1))
         post = native.search_chunk(q_enc, q_sa, q_acc, q_cond, chunks[0], p,
                                    stage=2)
         mids.append(native.chain_mid(q_enc, chunks[0], p, post))
-    return chunks, queries, mids
+    return chunks, queries, mids, pres
 
 
 @pytest.mark.gpu
@@ -67,9 +70,10 @@ def test_sweep_kernel_matches_plain_version_on_the_card(tiny_mids, dtype,
     traceback lists and floats (max_ext=120 float64 needs more than 48 KB
     of shared memory per block)."""
     dev = _card()
-    chunks, queries, mids = tiny_mids
+    chunks, queries, mids, _pres = tiny_mids
     qpack = tpl.QueryPack([q[0] for q in queries], [q[2] for q in queries],
-                          [q[3] for q in queries], device=dev)
+                          [q[3] for q in queries], [q[1] for q in queries],
+                          device=dev)
     dbpack = tpl.DbPack(chunks, device=dev)
     stream = tpl._concat_groups(mids, [(q, 0) for q in range(len(mids))])
     tpl._hit_bases(stream, qpack, dbpack)
@@ -96,15 +100,53 @@ def test_sweep_kernel_matches_plain_version_on_the_card(tiny_mids, dtype,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dropout", [5, 2])
+def test_ungapped_kernel_matches_plain_version_on_the_card(tiny_mids,
+                                                           dropout):
+    """The ungapped CUDA kernel (a thread per hit) and its plain version,
+    fed the tiny goldens' stage-1 hits on the card, give identical
+    integers and float32 energies."""
+    dev = _card()
+    chunks, queries, _mids, pres = tiny_mids
+    qpack = tpl.QueryPack([q[0] for q in queries], [q[2] for q in queries],
+                          [q[3] for q in queries], [q[1] for q in queries],
+                          device=dev)
+    dbpack = tpl.DbPack(chunks, device=dev)
+    stream = tpl._concat_groups(pres, [(q, 0) for q in range(len(pres))])
+    tpl._hit_bases(stream, qpack, dbpack)
+
+    def col(k, dtype=torch.int64):
+        return torch.as_tensor(stream.soa[k], device=dev).to(dtype)
+
+    args = (col("q_sp"), col("db_sp"), col("q_len"), col("dbseq_start"),
+            col("acc_e", torch.float32), col("hyb_e", torch.float32),
+            *(col(k) for k in ("qb", "qab", "dbb", "aoff", "coff")),
+            qpack.bufs, dbpack.bufs, 5, dropout)
+    launches = ungapped_op.launches
+    got = ungapped_op.ungapped_extend(*args)
+    ref = ungapped_op.ungapped_extend_flat(*args)
+    empty = ungapped_op.ungapped_extend(*(
+        a[:0] if torch.is_tensor(a) else a for a in args))
+    torch.cuda.synchronize()
+    assert ungapped_op.launches == launches + 1
+    assert all(v.numel() == 0 for v in empty.values())
+    assert set(got) == set(ref)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.gpu
 def test_ris_gpu_engine_on_the_card(tmp_path):
     """`ris --engine gpu` on the card: the golden hits and base pairs,
-    energies within the float32 engine's 2e-3, through the CUDA sweep."""
+    energies within the float32 engine's 2e-3, through the fused path's
+    ungapped kernel and the CUDA sweep."""
     _card()
     out = tmp_path / "gpu.txt"
-    before = sweep_op.launches
+    before = sweep_op.launches, ungapped_op.launches
     cli.main(["ris", "-i", str(DATA / "tiny_q.fa"), "-o", str(out), "-d",
               str(GOLDEN / "tiny" / "tiny_db")])
-    assert sweep_op.launches > before
+    assert sweep_op.launches > before[0]
+    assert ungapped_op.launches > before[1]
     got = out.read_text().splitlines()
     gold = (GOLDEN / "tiny" / "predictions.txt").read_text().splitlines()
     assert len(got) == len(gold)
@@ -163,3 +205,32 @@ def test_sweep_plain_on_invalid_hits_keeps_inputs():
     assert (pred == -1).all()
     assert (ints == 0).all()
     assert torch.equal(floats, args[5])
+
+
+def _ungapped_args(B=3, n=40):
+    """Arguments of ungapped_extend on the CPU: B hits over flat buffers of
+    n entries."""
+    cols = [torch.full((B,), 5, dtype=torch.int64) for _ in range(4)]
+    energy = [torch.zeros(B, dtype=torch.float32) for _ in range(2)]
+    bases = [torch.ones(B, dtype=torch.int64) for _ in range(5)]
+    bufs = (torch.full((n,), 2, dtype=torch.int64),
+            torch.zeros(n, dtype=torch.float32),
+            torch.zeros(n, dtype=torch.float32))
+    return [*cols, *energy, *bases, bufs, tuple(bufs), 5, 5]
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "bufs"])
+def test_ungapped_wrapper_rejects_bad_inputs(bad):
+    args = _ungapped_args()
+    assert set(ungapped_op.ungapped_extend(*args)) == set(
+        ungapped_op.INT_KEYS + ungapped_op.FLOAT_KEYS)
+    if bad == "dtype":
+        args[4] = args[4].double()              # acc_e
+    elif bad == "shape":
+        args[6] = args[6][:2]                   # qb
+    elif bad == "contiguous":
+        args[0] = torch.zeros((3, 2), dtype=torch.int64)[:, 0]  # q_sp
+    else:
+        args[12] = (args[12][0].int(), *args[12][1:])  # db_seq
+    with pytest.raises(ValueError):
+        ungapped_op.ungapped_extend(*args)

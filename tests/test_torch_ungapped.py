@@ -54,7 +54,8 @@ def build_staged(tmp, data_dir):
         posts.append(native.search_chunk(q_enc, q_sa, q_acc, q_cond,
                                          chunks[0], p, stage=2))
     qpack = tpl.QueryPack([q[0] for q in queries], [q[2] for q in queries],
-                          [q[3] for q in queries], device=CPU)
+                          [q[3] for q in queries], [q[1] for q in queries],
+                          device=CPU)
     dbpack = tpl.DbPack(chunks, device=CPU)
     return chunks, p, queries, qpack, dbpack, pres, posts
 
