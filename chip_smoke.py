@@ -5,15 +5,17 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: the native host library (g++) and the two CUDA kernels (nvcc,
-     sm_90a: the gapped extension and the ungapped extension), all from
-     this checkout, started together;
+  2. build: the native host library (g++) and the four CUDA kernel
+     sources (nvcc, sm_90a: the gapped extension, the ungapped extension,
+     the accessibility inside scan and outside scan), all from this
+     checkout, started together;
   3. main path at full size: a seeded workload the size of bench.py's
      (100 queries of ~1,000 nt against 20 db sequences of ~5,000 nt,
      first-order Markov sequences of transcript-like composition) through
      `db --engine gpu` and `ris --engine gpu` on cuda, whose search is the
      fused path (host seed DFS, device expansion, the ungapped kernel,
-     threshold, host mid, the gapped kernel, host finish); both kernels'
+     threshold, host mid, the gapped kernel, host finish) and whose
+     accessibility runs the two scan kernels; the four kernels'
      launch counts, the stage seconds (`ris.fused` split into its
      synchronised sub-stages), the peak device memory, and the mid stage's
      seconds and CPU seconds are read around that run;
@@ -38,7 +40,14 @@ Phases (any failure ends the run with a non-zero exit code):
      card's least time for the same work;
   6. the ungapped kernel (a thread per hit) against its plain version on
      the card, the same way: the main path's first launch and its first
-     4096+37 stage-1 hits, with the steps per hit.
+     4096+37 stage-1 hits, with the steps per hit;
+  7. the accessibility scan kernels (the inside pass with both exterior
+     scans; the outside pass) against their plain versions on the main
+     path's first db batch and its first ris batch (their own shapes):
+     each kernel's planes against its plain version's on the same inputs,
+     and the window energies of the kernel chain against the plain
+     chain's (2e-3 kcal/mol); each with its time, the plain version's and
+     the card's least time for the same work.
 The last lines are the kernels' JSON record, the card line from nvidia-smi
 and {"ok": true, "device": {...}}.
 """
@@ -62,6 +71,12 @@ PEAK_FLOPS = {"float32": 67e12,    # H100 SXM, outside the tensor cores
               "float64": 34e12}
 N_Q, Q_LEN, N_DB, DB_LEN = 100, 1000, 20, 5000
 N_STAGED = 20                      # queries of the staged-vs-fused phase
+# energy limit (kcal/mol) of the accessibility kernel chain against the
+# plain chain in float32: the repo's float32 bound
+ACCESS_TOL = 2e-3
+# relative limit of each scan kernel's planes against its plain version's
+# in float32, as tests/test_torch_access_emu.py holds them
+PLANE_RTOL = 1e-4
 # integer and float operations of one unpaired step of the ungapped kernel
 # (csrc/ungapped_extend.cu: position updates, 6 clamped loads with their
 # address arithmetic, the break tests, 5 float adds, the pair type, the
@@ -366,6 +381,85 @@ def ungapped_bound_ms(a, steps):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def access_bound_ms(B: int, n1: int, band: int, item: int, inside: bool,
+                    dtype: str = "float32"):
+    """Least time the card could take for one accessibility column scan of
+    a batch of B sequences over n1 columns (`item` bytes per value): the
+    larger of the bytes it must move over the memory rate and its
+    operations over the peak rate of the dtype.
+
+    Bytes, each counted once: the grids the scan reads (15 planes in the
+    dtype and 2 bool planes), for the outside scan also the inside pass's
+    multi1; the planes it writes (inside: 6, plus A and B; outside: 5);
+    the tables K2, Kb and the decay row.
+    Operations, per sequence and column, 2 per multiply-add and 1 per add,
+    only the terms the function needs (`access_ops_per_column`).
+
+    Returns (bound ms, "bytes" or "operations")."""
+    from priblast_tpu_torch.accessibility.batched import ML
+
+    R = ML + 1
+    cells = B * n1 * band
+    if inside:
+        nbytes = cells * (21 * item + 2) + 2 * B * n1 * item
+    else:
+        nbytes = cells * (21 * item + 2)
+    nbytes += (R * R + R + band) * item
+    # a column's terms depend on how many columns precede it (inside) or
+    # follow it (outside), up to band; both run over c = 0 .. n1 - 1
+    full = max(n1 - band, 0)
+    ops = B * (sum(access_ops_per_column(band, ML, c, inside)
+                   for c in range(n1 - full))
+               + full * access_ops_per_column(band, ML, band, inside))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def access_ops_per_column(band: int, ml: int, c: int, inside: bool) -> int:
+    """Operations of one column of one sequence of an accessibility scan,
+    with c columns before it (inside) or after it (outside): 2 per
+    multiply-add, 1 per add, counted from the kernels' loops with the
+    terms that are zero by construction left out.
+
+    - the interior-loop contraction: G[r][e] = sum_{u <= min(r, c)} K2[r][u]
+      x[e], for r = 2 .. ML (K2's rows 0 and 1 are zero) and the band - r
+      entries of row r that the skewed sum reads, then that sum (one add
+      per entry);
+    - the bulge sums, k = 2 .. ML within the band (Kb[0] = Kb[1] = 0), for
+      the same column and the window of columns;
+    - inside: the multibif sum over u = 1 .. min(W, d, c), the multi sum
+      over e <= d, and the forward and backward exterior steps (5
+      operations per term: a product, a difference, an exp, a product, an
+      add; min(band - 1, c) terms each way);
+    - outside: the multi sum over e >= d, bm1 over t = 1 .. min(W,
+      band - 1 - d, c), and the same-column bifurcations over e = d + f <= W;
+    - the element-wise terms per span: 28 (inside) and 31 (outside)."""
+    import numpy as np
+
+    W = band - 2
+    r = np.arange(2, ml + 1)
+    d = np.arange(band)
+    ops = 2 * int(((np.minimum(r, c) + 1) * (band - r)).sum())
+    ops += int((band - r).sum())
+    room = d if inside else band - 1 - d   # spans within the band, one way
+    ops += 2 * int(np.maximum(np.minimum(ml, room) - 1, 0).sum())
+    ops += 2 * int(np.maximum(np.minimum(np.minimum(ml, room), c) - 1,
+                              0).sum())
+    ops += band
+    if inside:
+        ops += 2 * int(np.minimum(np.minimum(W, d), c).sum())
+        ops += 2 * int((d + 1).sum())
+        ops += 2 * 5 * min(band - 1, c)
+        ops += 28 * band
+    else:
+        ops += 2 * int((band - d).sum())
+        ops += 2 * int(np.minimum(np.minimum(W, band - 1 - d), c).sum())
+        ops += 2 * int(np.maximum(W - d, 0).sum())
+        ops += 31 * band
+    return ops
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -384,6 +478,7 @@ def main() -> int:
     from priblast_tpu_torch.accessibility import batched
     from priblast_tpu_torch.models import ris as ris_model
     from priblast_tpu_torch.models import ris_gpu
+    from priblast_tpu_torch.ops import access_scan as acs
     from priblast_tpu_torch.ops import gapped_sweep, native
     from priblast_tpu_torch.ops import ungapped_extend as uop
     from priblast_tpu_torch.search import fused, gapped, pipeline, seed
@@ -409,15 +504,15 @@ def main() -> int:
         out = fn()
         return out, time.perf_counter() - t0
 
-    with cf.ThreadPoolExecutor(3) as ex:
-        fut_n = ex.submit(timed, native.build)
-        fut_k = ex.submit(timed, gapped_sweep.build)
-        fut_u = ex.submit(timed, uop.build)
-        (so_n, t_n), (so_k, t_k), (so_u, t_u) = (
-            fut_n.result(), fut_k.result(), fut_u.result())
-    print(f"[build] native {so_n.name} {t_n:.1f}s | gapped_extend "
-          f"{so_k.name} {t_k:.1f}s | ungapped_extend {so_u.name} "
-          f"{t_u:.1f}s", flush=True)
+    builds = {"native": native.build, "gapped_extend": gapped_sweep.build,
+              "ungapped_extend": uop.build, "access_inside": acs.build_inside,
+              "access_outside": acs.build_outside}
+    with cf.ThreadPoolExecutor(len(builds)) as ex:
+        futs = {k: ex.submit(timed, fn) for k, fn in builds.items()}
+        built = {k: f.result() for k, f in futs.items()}
+    print("[build] " + " | ".join(f"{k} {so.name} {t:.1f}s"
+                                  for k, (so, t) in built.items()),
+          flush=True)
 
     # ---- 3. main path at full size -----------------------------------------
     work = REPO / "build" / "chip_smoke"
@@ -433,6 +528,7 @@ def main() -> int:
     # mid-stage streams it extended, and the inputs of the first fused
     # stage and gapped and ungapped launches (the main path's own shapes)
     acc_devices, q_access, mid_streams, mid_runs = set(), {}, [], []
+    access_batches = []     # (codes, lengths) of every accessibility batch
     first_sweep, first_ungapped, first_fused = [], [], []
     run0 = batched.BatchedRaccess.run
     access0 = ris_gpu._accessibility_batched
@@ -444,6 +540,7 @@ def main() -> int:
 
     def run_rec(self, codes, lengths):
         acc_devices.add(str(self.device))
+        access_batches.append((codes.copy(), np.asarray(lengths).copy()))
         return run0(self, codes, lengths)
 
     def access_rec(engine, seqs, lengths, idxs):
@@ -488,14 +585,18 @@ def main() -> int:
     prof.reset()
     torch.cuda.reset_peak_memory_stats()
     gapped_sweep.launches = uop.launches = 0
+    acs.inside_launches = acs.outside_launches = 0
     t0 = time.perf_counter()
     cli.main(["db", "-i", str(work / "db.fa"), "-o", str(db_gpu)])
     t_db = time.perf_counter() - t0
+    n_db_batches = len(access_batches)
     t0 = time.perf_counter()
     cli.main(["ris", "-i", str(work / "q.fa"), "-o", str(out_gpu), "-d",
               str(db_gpu)])
     t_ris = time.perf_counter() - t0
     launches, ulaunches = gapped_sweep.launches, uop.launches
+    alaunches = {"access_inside": acs.inside_launches,
+                 "access_outside": acs.outside_launches}
     stages = prof.snapshot()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     batched.BatchedRaccess.run = run0
@@ -511,6 +612,12 @@ def main() -> int:
           f"the main path did not run the fused stage: {sorted(stages)}")
     check(launches > 0, "the gapped kernel was never launched")
     check(ulaunches > 0, "the ungapped kernel was never launched")
+    for name, n in alaunches.items():
+        check(n == len(access_batches),
+              f"{name} launched {n} times for {len(access_batches)} "
+              "accessibility batches")
+    check(0 < n_db_batches < len(access_batches),
+          "db or ris ran no accessibility batch")
     gpu_lines = body(out_gpu)
     check(len(gpu_lines) > 100, f"only {len(gpu_lines)} hits")
     for line in gpu_lines:
@@ -520,7 +627,11 @@ def main() -> int:
     print(f"[main] db {db_nt} nt in {t_db:.3f}s = {db_nt / t_db:.1f} nt/s; "
           f"ris {N_Q} queries in {t_ris:.3f}s = {N_Q / t_ris:.4f} q/s; "
           f"{len(gpu_lines)} hits; kernel launches: ungapped {ulaunches}, "
-          f"gapped {launches}; peak device memory {peak_gb:.2f} GB {tag}",
+          f"gapped {launches}, access_inside "
+          f"{alaunches['access_inside']}, access_outside "
+          f"{alaunches['access_outside']} ({n_db_batches} db + "
+          f"{len(access_batches) - n_db_batches} ris batches); peak device "
+          f"memory {peak_gb:.2f} GB {tag}",
           flush=True)
     print("[main] stage seconds " + json.dumps(
         {k: round(v, 4) for k, v in sorted(stages.items())}) + f" {tag}",
@@ -750,6 +861,99 @@ def main() -> int:
                    for x in ua)
     uerr = max(urec["err"], hold_ungapped("ragged", ubatch)["err"])
 
+    # ---- 7. the accessibility scan kernels vs their plain versions ------
+    def max_rel(got, ref):
+        """Largest |got - ref| / |ref| over the planes; values below
+        float32's smallest normal compare absolutely, as in the tests
+        (|got - ref| <= PLANE_RTOL |ref| + tiny)."""
+        floor = torch.finfo(torch.float32).tiny / PLANE_RTOL
+        return max(float(((a.double() - b.double()).abs()
+                          / (b.double().abs() + floor)).max())
+                   for a, b in zip(got, ref))
+
+    def energies(t, g, s, lens, n_max, band, ins, outs):
+        pw = batched.scan_probabilities(t, g, s, lens, p.min_accessible_length,
+                                        n_max, band, torch.float32, ins, outs)
+        return batched.accessibility_from_probabilities(
+            *pw, lens, p.min_accessible_length, n_max,
+            batched._linmodel(p.maximal_span).sp.kT)
+
+    def energy_diff(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    def timed_once(fn):
+        s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s0.record()
+        out = fn()
+        s1.record()
+        torch.cuda.synchronize()
+        return out, s0.elapsed_time(s1)
+
+    def hold_access(label, codes, lengths):
+        """Both scan kernels against their plain versions on one batch of
+        the main path, float32 as it runs: each kernel's planes against its
+        plain version's on the same inputs (max relative error), the window
+        energies with the outside kernel alone and with the whole kernel
+        chain against the plain chain (kcal/mol); then both timed."""
+        dt, w = torch.float32, p.maximal_span
+        band, (B, n_max) = w + 2, codes.shape
+        s_np = np.zeros((B, n_max + batched.ML + 4), np.int64)
+        s_np[:, 1: n_max + 1] = codes
+        s = torch.as_tensor(s_np, device=dev)
+        lens = torch.as_tensor(lengths.astype(np.int64), device=dev)
+        with torch.no_grad():
+            t = batched.make_tables(w, dt, dev)
+            g = batched.make_grids(t, s, lens, n_max, band, dt)
+            args = (t, g, lens, n_max, band, dt)
+            ins_k = acs.inside_scan(*args)
+            ins_p, plain_in = timed_once(lambda: acs.inside_plain(*args))
+            og, m1 = batched.outside_inputs(t, s, lens, n_max, band, dt, g,
+                                            ins_p)
+            oargs = (t, og, m1, n_max, band, dt)
+            outs_k = acs.outside_scan(*oargs)
+            outs_p, plain_out = timed_once(lambda: acs.outside_plain(*oargs))
+            og_k, m1_k = batched.outside_inputs(t, s, lens, n_max, band, dt,
+                                                g, ins_k)
+            chain = acs.outside_scan(t, og_k, m1_k, n_max, band, dt)
+            torch.cuda.synchronize()
+            for x in (*ins_k, *outs_k, *chain):
+                check(bool(torch.isfinite(x).all()),
+                      f"non-finite access kernel output ({label})")
+            e_p = energies(t, g, s, lens, n_max, band, ins_p, outs_p)
+            de_out = energy_diff(energies(t, g, s, lens, n_max, band, ins_p,
+                                          outs_k), e_p)
+            de_all = energy_diff(energies(t, g, s, lens, n_max, band, ins_k,
+                                          chain), e_p)
+            rel_in, rel_out = max_rel(ins_k, ins_p), max_rel(outs_k, outs_p)
+            check(de_all <= ACCESS_TOL and de_out <= ACCESS_TOL,
+                  f"access kernel energies differ by {de_all} / {de_out} "
+                  f"kcal/mol ({label})")
+            check(rel_in <= PLANE_RTOL and rel_out <= PLANE_RTOL,
+                  f"access kernel planes differ by {rel_in} / {rel_out} "
+                  f"relative ({label})")
+            ms_in = cuda_ms(lambda: acs.inside_scan(*args), 5)
+            ms_out = cuda_ms(lambda: acs.outside_scan(*oargs), 5)
+        n1 = n_max + 1
+        recs = {}
+        for name, ms, plain, rel, de, inside in (
+                ("access_inside", ms_in, plain_in, rel_in, de_all, True),
+                ("access_outside", ms_out, plain_out, rel_out, de_out,
+                 False)):
+            bound, bound_by = access_bound_ms(B, n1, band, 4, inside)
+            print(f"[kernel] {name} {label} float32 B={B} columns={n1}: "
+                  f"{ms:.4f} ms ({1e3 * ms / n1:.4f} us per column step), "
+                  f"plain {plain:.2f} ms, bound {bound:.6f} ms ({bound_by}), "
+                  f"{ms / bound:.1f}x bound, max rel plane diff {rel:.3g}, "
+                  f"max |energy diff| {de:.3g} kcal/mol {tag}", flush=True)
+            recs[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                              bound_by=bound_by, err=de)
+        return recs
+
+    db_rec = hold_access("main-path db batch", *access_batches[0])
+    ris_rec = hold_access("main-path ris batch",
+                          *access_batches[n_db_batches])
+    access_batches.clear()
+
     kernels = [{
         "name": "gapped_extend", "route": "cuda",
         "source": "priblast_tpu_torch/csrc/gapped_extend.cu",
@@ -768,6 +972,19 @@ def main() -> int:
         "bound_ms": urec["bound_ms"], "bound_by": urec["bound_by"],
         "library_ms": None,
     }]
+    for name, replaces in (
+            ("access_inside", "priblast_tpu/accessibility/batched.py:588,1067"),
+            ("access_outside", "priblast_tpu/accessibility/batched.py:926")):
+        rec = db_rec[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"priblast_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": alaunches[name],
+            "max_abs_err": max(rec["err"], ris_rec[name]["err"]),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

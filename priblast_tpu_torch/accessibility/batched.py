@@ -11,10 +11,14 @@ Layout: every per-column weight grid and every stacked state is
 - ``make_grids`` / ``make_outside_grids`` / ``make_prob_grids``: all
   sequence- and pair-type-dependent weights, as direct table gathers
   ``tab[index(chars around i, chars around j)]`` over the whole grid;
-- ``inside_pass`` / ``outside_pass`` / ``b_outer_scan``: column scans, one
-  Python loop step per column over ``[B, band]`` tensors, carrying small
-  rolling windows; the 31x31 interior-loop kernel is an einsum and the
-  multiloop span accumulation a triangular matmul;
+- ``inside_pass`` / ``outside_pass`` / ``b_outer_scan``: the column scans.
+  On ``cuda`` they run as two hand-written kernels (ops/access_scan.py:
+  the inside pass with both exterior scans, and the outside pass; one CTA
+  per sequence, the carry in shared memory). The functions here are those
+  kernels' plain versions, which the CPU runs: one Python loop step per
+  column over ``[B, band]`` tensors, carrying small rolling windows; the
+  31x31 interior-loop kernel is an einsum and the multiloop span
+  accumulation a triangular matmul;
 - ``probability_pass``: window probabilities, vectorized over the grid.
 
 Every table value that the formulation rounds to float32 is rounded here
@@ -197,11 +201,12 @@ def _seq_at(s: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _seq_diag(s: torch.Tensor, n_max: int, band: int, c: int):
-    """OUT[j, b, d] = s[b, j - d + c] (reads outside s resolve to 0)."""
+    """OUT[j, b, d] = s[b, j - d + c] (reads outside s resolve to 0),
+    contiguous, so that the grids gathered through it are too."""
     dev = s.device
     idx = (torch.arange(n_max + 1, device=dev)[:, None]
            - torch.arange(band, device=dev)[None, :] + c)
-    return _seq_at(s, idx).permute(1, 0, 2)
+    return _seq_at(s, idx).permute(1, 0, 2).contiguous()
 
 
 def _seq_col(s: torch.Tensor, n_max: int, c: int):
@@ -236,7 +241,8 @@ class _F32Tables:
 
 
 class Grids(NamedTuple):
-    """Per-column weight grids, all [N+1, B, band] (leading axis = column j)."""
+    """Per-column weight grids, all [N+1, B, band] (leading axis = column j),
+    contiguous."""
     stackW: torch.Tensor     # stem stack/stemend transition weight
     t1_nz: torch.Tensor      # bool: pair (i+1, j) exists
     mism_in: torch.Tensor    # prefold for stem as inner helix
@@ -436,7 +442,8 @@ def inside_pass(t: Tables, g: Grids, n_max: int, band: int, B: int, dtype):
 
 
 class OutsideGrids(NamedTuple):
-    """Per-column grids for the outside pass, [N+1, B, band] (column q)."""
+    """Per-column grids for the outside pass, [N+1, B, band] (column q),
+    contiguous."""
     t2_nz: torch.Tensor       # pair (p+1, q) exists
     seed: torch.Tensor        # exp(A[p] + B[q] - logZ + d lsig)
     dangle_pq: torch.Tensor   # same dangle as inside (pair (p+1, q))
@@ -892,28 +899,50 @@ def probability_pass(t: Tables, g: Grids, pg: ProbGrids, ins, outs,
     return ext_w, ext_w1, hp_b, hp_c, bi_b, bi_c, mp_w, mp_w1
 
 
+def outside_inputs(t: Tables, s_padded, lengths, n_max: int, band: int,
+                   dtype, g: Grids, ins):
+    """The outside scan's grids and multi1 from the inside scan's eight
+    outputs `ins` (six planes, A_full, B_full); lengths int64."""
+    A_full, B_full = ins[6], ins[7]
+    logZ = A_full.gather(0, lengths[None, :])[0]
+    og = make_outside_grids(t, s_padded, lengths, n_max, band, dtype, g,
+                            ins[5], A_full, B_full, logZ)
+    return og, ins[4]
+
+
+def scan_probabilities(t: Tables, g: Grids, s_padded, lengths,
+                       min_acc_len: int, n_max: int, band: int, dtype, ins,
+                       outs):
+    """(p_w, p_w1), each [N+2, B], from the inside scan's eight outputs
+    `ins` and the outside scan's five `outs`; lengths int64."""
+    A_full, B_full = ins[6], ins[7]
+    logZ = A_full.gather(0, lengths[None, :])[0]
+    pg = make_prob_grids(t, s_padded, n_max, band, dtype)
+    (ext_w, ext_w1, hp_b, hp_c, bi_b, bi_c, mp_w, mp_w1) = probability_pass(
+        t, g, pg, ins[:7], outs, A_full, B_full, logZ, min_acc_len, n_max,
+        band, dtype)
+    return ext_w + hp_b + bi_b + mp_w, ext_w1 + hp_c + bi_c + mp_w1
+
+
 def window_probabilities(w_span: int, min_acc_len: int, n_max: int, dtype,
                          s_padded: torch.Tensor, lengths: torch.Tensor):
     """Unpaired probabilities of every window of size w and w + 1, in
-    `dtype`: (p_w, p_w1), each [N+2, B] indexed by 1-based window start."""
+    `dtype`: (p_w, p_w1), each [N+2, B] indexed by 1-based window start.
+    The column scans run through ops/access_scan.py: the two kernels on
+    cuda, their plain versions on the CPU."""
+    # imported here: ops/access_scan.py imports this module
+    from priblast_tpu_torch.ops import access_scan
+
     band = w_span + 2
-    B = s_padded.shape[0]
+    lengths = lengths.to(torch.int64)
     t = make_tables(w_span, dtype=dtype, device=s_padded.device)
     g = make_grids(t, s_padded, lengths, n_max, band, dtype)
-    ins = inside_pass(t, g, n_max, band, B, dtype)
-    stem, multi1, multi2, A_full = ins[0], ins[4], ins[5], ins[6]
-    logZ = A_full.gather(0, lengths.to(torch.int64)[None, :])[0]
-
-    B_full = b_outer_scan(stem, g.ext_dot, n_max, band, B, dtype, lengths)
-    og = make_outside_grids(t, s_padded, lengths, n_max, band, dtype, g,
-                            multi2, A_full, B_full, logZ)
-    outs = outside_pass(t, og, multi1, n_max, band, B, dtype)
-
-    pg = make_prob_grids(t, s_padded, n_max, band, dtype)
-    (ext_w, ext_w1, hp_b, hp_c, bi_b, bi_c, mp_w, mp_w1) = probability_pass(
-        t, g, pg, ins, outs, A_full, B_full, logZ, min_acc_len, n_max, band,
-        dtype)
-    return ext_w + hp_b + bi_b + mp_w, ext_w1 + hp_c + bi_c + mp_w1
+    ins = access_scan.inside_scan(t, g, lengths, n_max, band, dtype)
+    og, multi1 = outside_inputs(t, s_padded, lengths, n_max, band, dtype, g,
+                                ins)
+    outs = access_scan.outside_scan(t, og, multi1, n_max, band, dtype)
+    return scan_probabilities(t, g, s_padded, lengths, min_acc_len, n_max,
+                              band, dtype, ins, outs)
 
 
 def accessibility_from_probabilities(p_w, p_w1, lengths, w: int,

@@ -39,8 +39,9 @@ def build(src: Path, flags) -> Path:
 
 def check_tensor(t: torch.Tensor, name: str, shape, dtype, device,
                  contiguous: bool = True) -> None:
-    """Raise ValueError unless `t` is a 1-D tensor on `device` (of `dtype`
-    and `shape` where given, contiguous where asked)."""
+    """Raise ValueError unless `t` is a tensor on `device` of `shape` (1-D
+    where no shape is given), of `dtype` where given, contiguous where
+    asked."""
     if not isinstance(t, torch.Tensor):
         raise ValueError(f"{name} must be a tensor")
     if t.device != device:
@@ -50,7 +51,7 @@ def check_tensor(t: torch.Tensor, name: str, shape, dtype, device,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if t.dim() != 1:
+    if shape is None and t.dim() != 1:
         raise ValueError(f"{name} must be 1-D")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

@@ -3,16 +3,18 @@
 // sources and run them: tests/test_torch_kernel_emu.py holds the results
 // against the kernels' plain PyTorch versions on a machine without a card.
 //
-// Every thread of a block is a std::thread, and __syncwarp,
-// __syncthreads, the ballots, the reductions and the shuffles meet at one
-// barrier (the warp-level ones are right for one warp per block, the
-// gapped kernel's emulated launch shape). The test
+// Every thread of a block is a std::thread. __syncthreads meets at the
+// block's barrier; __syncwarp, the ballots, the reductions and the
+// shuffles meet at the barrier of the calling thread's warp (32 threads,
+// fewer in a block's last warp), so one warp can run them while the
+// others wait at __syncthreads. The test
 // rewrites the kernel launch `k<<<grid, threads, smem, stream>>>(p)` into
 // emu_launch(k, grid, threads, smem, p), which runs the blocks one after
 // another, and defines the dynamic shared memory array in the kernel's
 // namespace.
 #pragma once
 #include <algorithm>
+#include <cmath>
 #include <condition_variable>
 #include <cstdint>
 #include <cstring>
@@ -71,43 +73,54 @@ struct EmuBarrier {
     }
   }
 };
-inline EmuBarrier emu_bar;
-inline int64_t emu_slot[32];
+constexpr int kEmuMaxThreads = 1024;
+inline EmuBarrier emu_bar;                          // the block's
+inline EmuBarrier emu_warp_bar[kEmuMaxThreads / 32];  // one per warp
+// a warp collective's exchange slots, used in turns: a lane can reuse a
+// buffer only after the whole warp has met again, so one wait suffices
+inline int64_t emu_slot[2][kEmuMaxThreads];
+inline thread_local int emu_turn = 0;
+
+inline EmuBarrier &emu_warp() { return emu_warp_bar[threadIdx.x / 32]; }
+// first thread and thread count of the calling thread's warp
+inline int emu_lane0() { return (int)(threadIdx.x & ~31u); }
+inline int emu_lanes() {
+  return std::min(32, (int)blockDim.x - emu_lane0());
+}
+// every lane of the calling warp posts v; returns the posted values
+inline const int64_t *emu_exchange(int64_t v) {
+  int64_t *slot = emu_slot[emu_turn];
+  emu_turn ^= 1;
+  slot[threadIdx.x] = v;
+  emu_warp().wait();
+  return slot;
+}
 
 inline void __syncthreads() { emu_bar.wait(); }
-inline void __syncwarp() { emu_bar.wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp().wait(); }
 inline unsigned __ballot_sync(unsigned, bool pred) {
-  emu_bar.wait();
-  emu_slot[threadIdx.x] = pred;
-  emu_bar.wait();
+  const int64_t *slot = emu_exchange(pred);
   unsigned m = 0;
-  for (int k = 0; k < 32; ++k)
-    if (emu_slot[k]) m |= 1u << k;
-  emu_bar.wait();
+  for (int k = 0; k < emu_lanes(); ++k)
+    if (slot[emu_lane0() + k]) m |= 1u << k;
   return m;
 }
 inline unsigned __reduce_or_sync(unsigned, unsigned v) {
-  emu_bar.wait();
-  emu_slot[threadIdx.x] = v;
-  emu_bar.wait();
+  const int64_t *slot = emu_exchange(v);
   unsigned m = 0;
-  for (int k = 0; k < (int)blockDim.x; ++k) m |= (unsigned)emu_slot[k];
-  emu_bar.wait();
+  for (int k = 0; k < emu_lanes(); ++k)
+    m |= (unsigned)slot[emu_lane0() + k];
   return m;
 }
 inline bool __any_sync(unsigned mask, bool pred) {
   return __ballot_sync(mask, pred) != 0;
 }
 template <class T> T __shfl_xor_sync(unsigned, T v, int off) {
-  emu_bar.wait();
   int64_t bits = 0;
   std::memcpy(&bits, &v, sizeof(T));
-  emu_slot[threadIdx.x] = bits;
-  emu_bar.wait();
-  const int64_t o = emu_slot[threadIdx.x ^ off];
+  const int64_t o = emu_exchange(bits)[threadIdx.x ^ off];
   T r;
   std::memcpy(&r, &o, sizeof(T));
-  emu_bar.wait();
   return r;
 }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
@@ -126,9 +139,12 @@ inline double __longlong_as_double(long long x) {
 template <class P>
 void emu_launch(void (*kernel)(P), int grid, int threads, size_t,
                 const P &p) {
+  if (threads < 1 || threads > kEmuMaxThreads) return;
   gridDim.x = grid;
   blockDim.x = threads;
   emu_bar.n = threads;
+  for (int w = 0; w * 32 < threads; ++w)
+    emu_warp_bar[w].n = std::min(32, threads - 32 * w);
   for (int b = 0; b < grid; ++b) {
     std::vector<std::thread> lanes;
     for (int t = 0; t < threads; ++t)

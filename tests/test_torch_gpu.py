@@ -10,11 +10,14 @@ JAX it runs as
 
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from priblast_tpu_torch import cli
+from priblast_tpu_torch.accessibility import batched as ab
 from priblast_tpu_torch.models import db as tdb
+from priblast_tpu_torch.ops import access_scan as acs
 from priblast_tpu_torch.ops import gapped_sweep as sweep_op
 from priblast_tpu_torch.ops import native
 from priblast_tpu_torch.ops import ungapped_extend as ungapped_op
@@ -234,3 +237,98 @@ def test_ungapped_wrapper_rejects_bad_inputs(bad):
         args[12] = (args[12][0].int(), *args[12][1:])  # db_seq
     with pytest.raises(ValueError):
         ungapped_op.ungapped_extend(*args)
+
+
+def _access_batch(dev, n_seq=5, pad_rows=2, dtype=torch.float32):
+    """The first n_seq tiny_db.fa sequences (ragged lengths) and pad_rows
+    all-padding rows of length 0, as BatchedRaccess.run pads them: the
+    tables, grids, padded codes and lengths on `dev`."""
+    _names, seqs = fasta.read_fasta(DATA / "tiny_db.fa")
+    seqs = seqs[:n_seq]
+    n_max = max(len(q) for q in seqs)
+    B = n_seq + pad_rows
+    s = np.zeros((B, n_max + ab.ML + 4), np.int64)
+    for i, q in enumerate(seqs):
+        s[i, 1: len(q) + 1] = alphabet.access_codes(q)
+    s = torch.as_tensor(s, device=dev)
+    lens = torch.tensor([len(q) for q in seqs] + [0] * pad_rows,
+                        dtype=torch.int64, device=dev)
+    t = ab.make_tables(70, dtype, dev)
+    g = ab.make_grids(t, s, lens, n_max, 72, dtype)
+    return t, g, s, lens, n_max
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol,etol", [("float64", 1e-12, 1e-9),
+                                             ("float32", 1e-4, 2e-3)])
+def test_access_kernels_match_plain_versions_on_the_card(dtype, rtol, etol):
+    """Both scan kernels against their plain versions on the card, on a
+    ragged batch with two all-padding rows: every plane, A and B to rtol
+    (float64: only the order of sums of nonnegative terms differs), and
+    the window energies of the kernel chain against the plain chain's to
+    etol kcal/mol."""
+    dev = _card()
+    dt = ab._DTYPES[dtype]
+    t, g, s, lens, n_max = _access_batch(dev, dtype=dt)
+    args = (t, g, lens, n_max, 72, dt)
+    before = acs.inside_launches, acs.outside_launches
+    ins_k = acs.inside_scan(*args)
+    ins_p = acs.inside_plain(*args)
+    og, m1 = ab.outside_inputs(t, s, lens, n_max, 72, dt, g, ins_p)
+    outs_k = acs.outside_scan(t, og, m1, n_max, 72, dt)
+    outs_p = acs.outside_plain(t, og, m1, n_max, 72, dt)
+    og_k, m1_k = ab.outside_inputs(t, s, lens, n_max, 72, dt, g, ins_k)
+    chain = acs.outside_scan(t, og_k, m1_k, n_max, 72, dt)
+    torch.cuda.synchronize()
+    assert (acs.inside_launches, acs.outside_launches) == (
+        before[0] + 1, before[1] + 2)
+    for got, ref in zip((*ins_k, *outs_k), (*ins_p, *outs_p)):
+        err = (got.double() - ref.double()).abs()
+        lim = rtol * ref.double().abs() + torch.finfo(dt).tiny
+        assert bool((err <= lim).all())
+    kT = ab._linmodel(70).sp.kT
+
+    def energies(ins, outs):
+        pw = ab.scan_probabilities(t, g, s, lens, 5, n_max, 72, dt, ins,
+                                   outs)
+        return ab.accessibility_from_probabilities(*pw, lens, 5, n_max, kT)
+
+    for a, b in zip(energies(ins_k, chain), energies(ins_p, outs_p)):
+        assert float((a - b).abs().max()) <= etol
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "device",
+                                 "lengths"])
+def test_access_inside_wrapper_rejects_bad_inputs(bad):
+    t, g, _s, lens, n_max = _access_batch("cpu", n_seq=2, pad_rows=0)
+    ins = acs.inside_scan(t, g, lens, n_max, 72, torch.float32)
+    assert len(ins) == 8 and ins[7].shape == (n_max + 1, 2)
+    if bad == "dtype":
+        g = g._replace(hpW=g.hpW.double())
+    elif bad == "shape":
+        g = g._replace(t1_nz=g.t1_nz[:, :1])
+    elif bad == "contiguous":
+        g = g._replace(sp11=g.sp11.transpose(0, 1).contiguous()
+                       .transpose(0, 1))
+    elif bad == "device":
+        lens = lens.to("meta")
+    else:
+        lens = lens + n_max                     # past the padded length
+    with pytest.raises(ValueError):
+        acs.inside_scan(t, g, lens, n_max, 72, torch.float32)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "multi1"])
+def test_access_outside_wrapper_rejects_bad_inputs(bad):
+    t, g, s, lens, n_max = _access_batch("cpu", n_seq=2, pad_rows=0)
+    ins = acs.inside_scan(t, g, lens, n_max, 72, torch.float32)
+    og, m1 = ab.outside_inputs(t, s, lens, n_max, 72, torch.float32, g, ins)
+    assert len(acs.outside_scan(t, og, m1, n_max, 72, torch.float32)) == 5
+    if bad == "dtype":
+        og = og._replace(valid_int=og.valid_int.float())
+    elif bad == "shape":
+        og = og._replace(seed=og.seed[:-1])
+    else:
+        m1 = m1.double()
+    with pytest.raises(ValueError):
+        acs.outside_scan(t, og, m1, n_max, 72, torch.float32)
