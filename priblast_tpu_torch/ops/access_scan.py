@@ -33,7 +33,10 @@ SRC_INSIDE = _CSRC / "access_inside.cu"
 SRC_OUTSIDE = _CSRC / "access_outside.cu"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-THREADS = 256  # threads per CTA (one CTA per sequence)
+THREADS = 256  # threads per CTA of the inside kernel (one CTA per sequence)
+# threads per CTA of the outside kernel: the fastest of 512, 768 and 1024
+# on the H100 (access_ab.py; PERF.md)
+OUTSIDE_THREADS = 768
 
 inside_launches = 0   # kernel launches by inside_scan(); plain calls not counted
 outside_launches = 0  # kernel launches by outside_scan()
@@ -189,7 +192,7 @@ def outside_scan(t: ab.Tables, og: ab.OutsideGrids, multi1_full,
 
 
 def _outside_call(fn, t, og, multi1_full, n_max: int, band: int, dtype,
-                  stream, threads: int = THREADS):
+                  stream, threads: int = OUTSIDE_THREADS):
     """Allocate the outputs and call the C entry point of
     csrc/access_outside.cu (`fn`) on checked arguments on `stream`."""
     dev = og.seed.device

@@ -26,6 +26,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __launch_bounds__(...)
 #define __shared__
 #define __align__(n) __attribute__((aligned(n)))
 using std::max;

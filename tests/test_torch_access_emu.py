@@ -3,7 +3,9 @@ inside pass with both exterior scans; csrc/access_outside.cu: the outside
 pass), compiled by g++ against tests/cuda_emu/ (one std::thread per CUDA
 thread), against their plain PyTorch versions in
 accessibility/batched.py, on the first three tiny_db.fa sequences (292,
-257 and 271 nt: a ragged batch).
+257 and 271 nt) and the first 40 nt of the fourth: a ragged batch with a
+sequence shorter than the band, so that the outside kernel's multi1 ring
+reads rows before column 0.
 
 Tolerances:
 - the stacked planes, A and B: relative 1e-12 in float64 (every term of
@@ -14,7 +16,8 @@ Tolerances:
   2e-3 in float32 (the repo's float32 bound).
 
 The emulated CTA has 128 threads (four warps; the card runs 256), so warp
-0's exterior steps and the item loops that span warps are exercised. This
+0's exterior steps and the item loops that span warps are exercised; the
+outside kernel also runs at 256 threads in float64 and float32. This
 runs the kernels' own arithmetic, indexing and barriers on a machine
 without a card; it does not replace the comparison on the card
 (tests/test_torch_gpu.py, chip_smoke.py).
@@ -36,7 +39,8 @@ from test_torch_kernel_emu import _emu_build
 torch.set_num_threads(1)
 
 DATA = Path(__file__).resolve().parent / "data"
-W_SPAN, D, N_SEQ, EMU_THREADS = 70, 5, 3, 128
+W_SPAN, D, N_SEQ, EMU_THREADS = 70, 5, 4, 128
+SHORT = 40  # nt of the last sequence, shorter than the band
 BAND = W_SPAN + 2
 TOL = {torch.float64: (1e-12, 1e-9), torch.float32: (1e-4, 2e-3)}
 PLANES = ("stem", "stem_m", "stem_a", "multi", "multi1", "multi2", "A", "B")
@@ -55,7 +59,7 @@ def emu_libs(tmp_path_factory):
 @pytest.fixture(scope="module")
 def tiny_batch():
     _names, seqs = fasta.read_fasta(DATA / "tiny_db.fa")
-    seqs = seqs[:N_SEQ]
+    seqs = [*seqs[: N_SEQ - 1], seqs[N_SEQ - 1][:SHORT]]
     n_max = max(len(s) for s in seqs)
     s = np.zeros((len(seqs), n_max + ab.ML + 4), np.int64)
     for i, q in enumerate(seqs):
@@ -141,6 +145,45 @@ def test_kernel_chain_window_energies_match_plain_chain(runs):
     grids from the inside kernel's outputs) against the plain chain."""
     dtype, *_, e_plain, e_emu = runs
     assert len(e_plain) == N_SEQ
+    for ep, ee in zip(e_plain, e_emu):
+        assert np.isfinite(ee).all()
+        assert np.abs(ee - ep).max() <= TOL[dtype][1]
+
+
+@pytest.fixture(scope="module", params=["float64", "float32"])
+def runs_256(request, emu_libs, tiny_batch):
+    """The outside kernel at 256 threads per CTA on the plain chain's
+    outside inputs, outside_pass on the same inputs, and both chains'
+    window energies (plain inside planes, then either outside pass)."""
+    dtype = ab._DTYPES[request.param]
+    sfx = "f64" if dtype == torch.float64 else "f32"
+    f_out = getattr(emu_libs[1], f"access_outside_{sfx}")
+    s, lens, n_max = tiny_batch
+    t = ab.make_tables(W_SPAN, dtype)
+    g = ab.make_grids(t, s, lens, n_max, BAND, dtype)
+    ins = acs.inside_scan(t, g, lens, n_max, BAND, dtype)
+    og, m1 = ab.outside_inputs(t, s, lens, n_max, BAND, dtype, g, ins)
+    plain_out = acs.outside_scan(t, og, m1, n_max, BAND, dtype)
+    emu_out = acs._outside_call(f_out, t, og, m1, n_max, BAND, dtype, 0, 256)
+    return (dtype, plain_out, emu_out,
+            _energies(t, g, s, lens, n_max, dtype, ins, plain_out),
+            _energies(t, g, s, lens, n_max, dtype, ins, emu_out))
+
+
+def test_outside_kernel_at_256_threads_matches_plain_version(runs_256):
+    """Five stacked planes at 256 threads (eight warps) against
+    outside_pass, short sequence included."""
+    dtype, plain_out, emu_out, *_ = runs_256
+    for name, got, ref in zip(OUT_PLANES, emu_out, plain_out):
+        _assert_close(got, ref, TOL[dtype][0], dtype, name)
+    assert float(plain_out[4][:, N_SEQ - 1].abs().max()) > 0
+
+
+def test_outside_kernel_at_256_threads_window_energies(runs_256):
+    """Window energies with the outside kernel at 256 threads against the
+    plain chain, the short sequence's included."""
+    dtype, *_, e_plain, e_emu = runs_256
+    assert len(e_emu) == N_SEQ and len(e_emu[-1]) == SHORT - D + 1
     for ep, ee in zip(e_plain, e_emu):
         assert np.isfinite(ee).all()
         assert np.abs(ee - ep).max() <= TOL[dtype][1]
