@@ -1,30 +1,42 @@
 #!/usr/bin/env python3
-"""The outside column-scan kernel against its parent version and variants,
-on one GPU, on the main path's first db batch and first ris batch.
+"""A column-scan kernel against its parent version and variants, on one
+GPU, on the main path's first db batch and first ris batch; then both
+scan kernels as committed on all four of the main path's batches.
 
-    python3 access_ab.py [--parent FILE] [--parent-threads 256] [--reps 5]
+    python3 access_ab.py [--kernel outside|inside] [--parent FILE]
+                         [--parent-threads 256] [--reps 5]
                          [--threads 768,512] [NAME=SRC[@THREADS] ...]
 
-Builds, with the wrapper's nvcc flags: the parent's
-priblast_tpu_torch/csrc/access_outside.cu (--parent, else `git show
-HEAD:` of it), the committed one, each NAME=SRC variant (a source with the
-same C interface), and a stamped build (-DACCESS_STAMPS) of every source
-that has the stamp hooks. Each build runs at its own threads per CTA: the
-parent at --parent-threads (what its wrapper launched), a variant at
-@THREADS, else the first --threads (default: the wrapper's); the
-committed one also at the other --threads. The batches are those of
-`chip_smoke.py`'s workload from --seed (its first `db` batch, 16 x 6,145
-columns, and the first `ris` batch, 64 x 1,281), with the outside inputs
-made from the inside kernel's planes, as on the main path. Every build
-must give the plain version's planes (`outside_pass`) within 1e-4
-relative in float32 and window energies within 2e-3 kcal/mol; then all
-are timed with CUDA events in turns (first to last, then last to first).
+Builds, with the wrapper's nvcc flags, for --kernel (default outside):
+the parent's priblast_tpu_torch/csrc/access_<kernel>.cu (--parent, else
+`git show HEAD:` of it), the committed one, each NAME=SRC variant (a
+source with the same C interface), and a stamped build (-DACCESS_STAMPS)
+of every source that has the stamp hooks. Each build runs at its own
+threads per CTA: the parent at --parent-threads (what its wrapper
+launched), a variant at @THREADS, else the first --threads (default: the
+wrapper's); the committed one also at the other --threads. The batches
+are those of `chip_smoke.py`'s workload from --seed (its first `db`
+batch, 16 x 6,145 columns, and the first `ris` batch, 64 x 1,281). Every
+build must give its plain version's outputs within 1e-4 relative in
+float32 and window energies within 2e-3 kcal/mol:
+- outside: the planes of `outside_pass`, on the outside inputs made from
+  the inside kernel's planes, as on the main path; the energies with the
+  plain inside planes;
+- inside: the six planes, A and B of `inside_plain` (inside_pass, then
+  b_outer_scan); the energies through the plain outside pass on the
+  build's own planes (~12 s per build on the db batch).
+Then all are timed with CUDA events in turns (first to last, then last
+to first).
 
 Prints per build and batch: ms, us per column step, x its bound; per
 stamped build the stage split (work: from the previous barrier to the
-last thread's arrival; barrier: from there to thread 0's exit), in SM
-cycles and in us per column step (cycle shares of the measured step);
-and one JSON object last.
+last thread's arrival; barrier: from there to thread 0's exit; the inside
+kernel's backward exterior scan is a stage of its own, once per CTA), in
+SM cycles and in us per column step (cycle shares of the measured step);
+`[batches]` lines with both committed kernels on each of the main path's
+four batches (db 16 x 6,145 and 8 x 5,121; ris 64 x 1,281 and 64 x
+1,025) and their sums, launches x (time - bound); and one JSON object
+last.
 """
 
 from __future__ import annotations
@@ -39,14 +51,16 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-SRC_REL = "priblast_tpu_torch/csrc/access_outside.cu"
+SRC_REL = "priblast_tpu_torch/csrc/access_{}.cu"
 PLANE_RTOL, ENERGY_TOL = 1e-4, 2e-3
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", nargs="*", metavar="NAME=SRC[@THREADS]")
-    ap.add_argument("--parent", help="the parent's access_outside.cu")
+    ap.add_argument("--kernel", choices=("outside", "inside"),
+                    default="outside")
+    ap.add_argument("--parent", help="the parent's access_<kernel>.cu")
     ap.add_argument("--parent-threads", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=5)
@@ -76,15 +90,19 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     out_dir = HERE / "build" / "access_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    threads = [int(x) for x in (args.threads
-                                or str(acs.OUTSIDE_THREADS)).split(",")]
+    kern = args.kernel
+    inside = kern == "inside"
+    threads = [int(x) for x in (args.threads or str(
+        acs.THREADS if inside else acs.OUTSIDE_THREADS)).split(",")]
 
-    parent = Path(args.parent) if args.parent else out_dir / "parent.cu"
+    parent = (Path(args.parent) if args.parent
+              else out_dir / f"parent_{kern}.cu")
     if not args.parent:
         parent.write_text(subprocess.run(
-            ["git", "show", f"HEAD:{SRC_REL}"], cwd=HERE, check=True,
-            capture_output=True, text=True).stdout)
-    specs = {"parent": parent, "committed": acs.SRC_OUTSIDE}
+            ["git", "show", f"HEAD:{SRC_REL.format(kern)}"], cwd=HERE,
+            check=True, capture_output=True, text=True).stdout)
+    specs = {"parent": parent,
+             "committed": acs.SRC_INSIDE if inside else acs.SRC_OUTSIDE}
     own = {"parent": args.parent_threads, "committed": threads[0]}
     for v in args.variants:
         name, _, spec = v.partition("=")
@@ -114,22 +132,25 @@ def main() -> int:
                         ln.split(":", 1)[-1].strip()
                         for ln in part.splitlines()
                         if "registers" in ln or "spill" in ln)
-        for fn in ("access_outside_f32", "access_outside_f64"):
+        for fn in (f"access_{kern}_f32", f"access_{kern}_f64"):
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = [ctypes.c_void_p] * 4
         if stamped:
-            lib.access_outside_stamps.restype = ctypes.c_int
-            lib.access_outside_stamps.argtypes = [ctypes.c_void_p]
-            lib.access_outside_stage_names.restype = ctypes.c_char_p
+            getattr(lib, f"access_{kern}_stamps").restype = ctypes.c_int
+            getattr(lib, f"access_{kern}_stamps").argtypes = [
+                ctypes.c_void_p]
+            getattr(lib, f"access_{kern}_stage_names").restype = (
+                ctypes.c_char_p)
         return name, lib
 
     regs = {}
-    with cf.ThreadPoolExecutor(len(builds) + 2) as ex:
+    with cf.ThreadPoolExecutor(len(builds) + 3) as ex:
         futs = [ex.submit(build, n, s, st) for n, (s, st) in builds.items()]
-        futs.append(ex.submit(lambda: ("inside", acs._lib("inside"))))
+        wrappers = [ex.submit(acs._lib, k) for k in ("inside", "outside")]
         ex.submit(native.build).result()
+        for f in wrappers:
+            f.result()
         libs = dict(f.result() for f in futs)
-    libs.pop("inside")
     failed = sorted(n for n, lib in libs.items() if lib is None)
     libs = {n: lib for n, lib in libs.items() if lib is not None}
     print(f"[build] {', '.join(libs)} ({card})", flush=True)
@@ -146,19 +167,23 @@ def main() -> int:
     q_seqs = cs.markov_batch(rng, q_lens)
     wave = [int(i) for i in native.argsort_desc(q_lens)]
 
-    def first_batch(seqs, idxs):
-        group, bsz, padded = next(db_gpu.plan_batches(
-            [len(seqs[i]) for i in idxs]))
-        codes = np.zeros((bsz, padded), np.uint8)
-        lens = np.zeros(bsz, np.int64)
-        for bi, g in enumerate(group):
-            codes[bi, : len(seqs[idxs[g]])] = alphabet.access_codes(
-                seqs[idxs[g]])
-            lens[bi] = len(seqs[idxs[g]])
-        return codes, lens
+    def plan(seqs, idxs):
+        """The accessibility batches of the main path: (codes, lengths)."""
+        out = []
+        for group, bsz, padded in db_gpu.plan_batches(
+                [len(seqs[i]) for i in idxs]):
+            codes = np.zeros((bsz, padded), np.uint8)
+            lens = np.zeros(bsz, np.int64)
+            for bi, g in enumerate(group):
+                codes[bi, : len(seqs[idxs[g]])] = alphabet.access_codes(
+                    seqs[idxs[g]])
+                lens[bi] = len(seqs[idxs[g]])
+            out.append((codes, lens))
+        return out
 
-    batches = {"db": first_batch(db_seqs, list(range(len(db_seqs)))),
-               "ris": first_batch(q_seqs, wave)}
+    db_batches = plan(db_seqs, list(range(len(db_seqs))))
+    ris_batches = plan(q_seqs, wave)
+    batches = {"db": db_batches[0], "ris": ris_batches[0]}
     dev, dt, w, dmin = torch.device("cuda"), torch.float32, 70, 5
     band = w + 2
     kT = batched._linmodel(w).sp.kT
@@ -168,33 +193,59 @@ def main() -> int:
     bad = set(failed)  # builds that fail or differ from the plain version
     no_launch = set()  # (build, threads) refused at launch
 
-    for bname, (codes, lengths) in batches.items():
+    def inputs(codes, lengths):
+        """The tables, grids and sequences of one batch on the card."""
         B, n_max = codes.shape
-        n1 = n_max + 1
         s_np = np.zeros((B, n_max + batched.ML + 4), np.int64)
         s_np[:, 1: n_max + 1] = codes
         s = torch.as_tensor(s_np, device=dev)
         lens = torch.as_tensor(lengths, device=dev)
-        with torch.no_grad():
-            t = batched.make_tables(w, dt, dev)
-            g = batched.make_grids(t, s, lens, n_max, band, dt)
-            ins = acs.inside_scan(t, g, lens, n_max, band, dt)
-            og, m1 = batched.outside_inputs(t, s, lens, n_max, band, dt, g,
-                                            ins)
-            ref = acs.outside_plain(t, og, m1, n_max, band, dt)
+        t = batched.make_tables(w, dt, dev)
+        g = batched.make_grids(t, s, lens, n_max, band, dt)
+        return t, g, s, lens, n_max
 
-            def energies(outs):
+    for bname, (codes, lengths) in batches.items():
+        B, n_max = codes.shape
+        n1 = n_max + 1
+        with torch.no_grad():
+            t, g, s, lens, n_max = inputs(codes, lengths)
+
+            def energies(ins, outs):
                 pw = batched.scan_probabilities(t, g, s, lens, dmin, n_max,
                                                 band, dt, ins, outs)
                 return batched.accessibility_from_probabilities(
                     *pw, lens, dmin, n_max, kT)
 
-            e_ref = energies(ref)
+            def plain_outside(ins):
+                og, m1 = batched.outside_inputs(t, s, lens, n_max, band, dt,
+                                                g, ins)
+                return acs.outside_plain(t, og, m1, n_max, band, dt)
 
-            def call(name, nt):
-                return acs._outside_call(
-                    libs[name].access_outside_f32, t, og, m1, n_max, band,
-                    dt, stream, nt)
+            if inside:
+                ref = acs.inside_plain(t, g, lens, n_max, band, dt)
+                e_ref = energies(ref, plain_outside(ref))
+
+                def call(name, nt):
+                    return acs._inside_call(
+                        libs[name].access_inside_f32, t, g, lens, n_max,
+                        band, dt, stream, nt)
+
+                def run_energies(out):
+                    return energies(out, plain_outside(out))
+            else:
+                ins = acs.inside_scan(t, g, lens, n_max, band, dt)
+                og, m1 = batched.outside_inputs(t, s, lens, n_max, band, dt,
+                                                g, ins)
+                ref = acs.outside_plain(t, og, m1, n_max, band, dt)
+                e_ref = energies(ins, ref)
+
+                def call(name, nt):
+                    return acs._outside_call(
+                        libs[name].access_outside_f32, t, og, m1, n_max,
+                        band, dt, stream, nt)
+
+                def run_energies(out):
+                    return energies(ins, out)
 
             runs = [(n, own[n]) for n in libs]
             runs += [("committed", nt) for nt in threads[1:]
@@ -217,7 +268,7 @@ def main() -> int:
                                  / (r.double().abs() + floor)).max())
                           for a, r in zip(out, ref))
                 de = max(float((x - y).abs().max())
-                         for x, y in zip(energies(out), e_ref))
+                         for x, y in zip(run_energies(out), e_ref))
                 print(f"[check] {bname} {name} threads={nt}: max rel "
                       f"plane diff {rel:.3g}, max |energy diff| "
                       f"{de:.3g} kcal/mol", flush=True)
@@ -227,7 +278,7 @@ def main() -> int:
                           file=sys.stderr)
                     bad.add(name)
 
-            bound, bound_by = cs.access_bound_ms(B, n1, band, 4, False)
+            bound, bound_by = cs.access_bound_ms(B, n1, band, 4, inside)
             times = {}
             runs = [(n, nt) for n, nt in runs
                     if n not in bad and (n, nt) not in no_launch]
@@ -248,11 +299,13 @@ def main() -> int:
                     continue
                 sums = (ctypes.c_ulonglong * 64)()
                 ptr = ctypes.cast(sums, ctypes.c_void_p)
-                lib.access_outside_stamps(ptr)        # clear
+                stamps = getattr(lib, f"access_{kern}_stamps")
+                stamps(ptr)                           # clear
                 call(name, own[name])
                 torch.cuda.synchronize()
-                lib.access_outside_stamps(ptr)
-                stages = lib.access_outside_stage_names().decode().split(",")
+                stamps(ptr)
+                stages = getattr(lib, f"access_{kern}_stage_names")(
+                    ).decode().split(",")
                 k = len(stages)
                 cols = sums[2 * k]
                 total = sum(sums[: 2 * k])
@@ -271,6 +324,47 @@ def main() -> int:
         report["batches"][bname] = dict(
             B=B, columns=n1, bound_ms=bound, bound_by=bound_by,
             times_ms=times, splits=splits)
+
+    # both committed kernels, through their wrappers, on all four batches
+    sums = {k: dict(ms=0.0, bound_ms=0.0, launches=0)
+            for k in ("inside", "outside")}
+    report["main_path"] = []
+    for bname, blist in (("db", db_batches), ("ris", ris_batches)):
+        for k, (codes, lengths) in enumerate(blist):
+            B, n_max = codes.shape
+            n1 = n_max + 1
+            with torch.no_grad():
+                t, g, s, lens, n_max = inputs(codes, lengths)
+                iargs = (t, g, lens, n_max, band, dt)
+                ins = acs.inside_scan(*iargs)
+                og, m1 = batched.outside_inputs(t, s, lens, n_max, band, dt,
+                                                g, ins)
+                oargs = (t, og, m1, n_max, band, dt)
+                for kname, fn, args_ in (("inside", acs.inside_scan, iargs),
+                                         ("outside", acs.outside_scan,
+                                          oargs)):
+                    ms = cs.cuda_ms(lambda: fn(*args_), args.reps)
+                    bound, bound_by = cs.access_bound_ms(
+                        B, n1, band, 4, kname == "inside")
+                    sums[kname]["ms"] += ms
+                    sums[kname]["bound_ms"] += bound
+                    sums[kname]["launches"] += 1
+                    report["main_path"].append(dict(
+                        kernel=kname, batch=f"{bname}{k + 1}", B=B,
+                        columns=n1, ms=ms, bound_ms=bound, bound_by=bound_by))
+                    print(f"[batches] access_{kname} {bname} batch {k + 1} "
+                          f"B={B} columns={n1}: {ms:.4f} ms, "
+                          f"{1e3 * ms / n1:.4f} us per column step, bound "
+                          f"{bound:.6f} ms ({bound_by}), {ms / bound:.1f}x "
+                          f"({card})", flush=True)
+    for kname, v in sums.items():
+        v["loss_ms"] = v["ms"] - v["bound_ms"]
+        print(f"[batches] access_{kname} over {v['launches']} launches: "
+              f"{v['ms']:.4f} ms, bound {v['bound_ms']:.6f} ms, "
+              f"launches x (time - bound) {v['loss_ms']:.4f} ms ({card})",
+              flush=True)
+    report["main_path_sums"] = sums
+    report["kernel"] = kern
     report["at"] = time.strftime("%Y-%m-%dT%H:%M:%S")
     report["differ"] = sorted(bad)
     print(json.dumps(report))

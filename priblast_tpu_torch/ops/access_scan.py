@@ -33,9 +33,10 @@ SRC_INSIDE = _CSRC / "access_inside.cu"
 SRC_OUTSIDE = _CSRC / "access_outside.cu"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-THREADS = 256  # threads per CTA of the inside kernel (one CTA per sequence)
-# threads per CTA of the outside kernel: the fastest of 512, 768 and 1024
-# on the H100 (access_ab.py; PERF.md)
+# threads per CTA (one CTA per sequence) of the inside kernel, the fastest
+# of 256, 512, 768 and 1024 on the H100, and of the outside kernel, the
+# fastest of 512, 768 and 1024 (access_ab.py; PERF.md)
+THREADS = 768
 OUTSIDE_THREADS = 768
 
 inside_launches = 0   # kernel launches by inside_scan(); plain calls not counted

@@ -15,12 +15,15 @@ Tolerances:
   kernel chain against the whole plain chain: 1e-9 kcal/mol in float64 and
   2e-3 in float32 (the repo's float32 bound).
 
-The emulated CTA has 128 threads (four warps; the card runs 256), so warp
-0's exterior steps and the item loops that span warps are exercised; the
-outside kernel also runs at 256 threads in float64 and float32. This
-runs the kernels' own arithmetic, indexing and barriers on a machine
-without a card; it does not replace the comparison on the card
-(tests/test_torch_gpu.py, chip_smoke.py).
+The emulated CTA has 128 threads (four warps; the card runs 768), so
+every warp takes several of a stage's tasks and the backward exterior
+scan's step buffers are loaded by three warps; both kernels also run at
+256 threads in float64 and float32. The short sequence's last columns lie
+past its end: the inside kernel's lagged exterior step and its backward
+scan must hold A constant and B at 0 there. This runs the kernels' own
+arithmetic, indexing and barriers on a machine without a card; it does
+not replace the comparison on the card (tests/test_torch_gpu.py,
+chip_smoke.py).
 """
 
 from pathlib import Path
@@ -131,6 +134,32 @@ def test_inside_kernel_source_matches_plain_version(runs):
     assert float(plain[7].abs().max()) > 1       # B is not trivially 0
 
 
+def test_inside_kernel_exterior_scans_past_the_short_sequence(runs):
+    """A and B of the 40-nt sequence, whose last columns lie past its end:
+    A from the lagged exterior step, B from the backward scan's staged
+    steps, against the plain scans; A stays constant from column SHORT on
+    and B is 0 there, as in the plain version."""
+    dtype, plain, emu, *_ = runs
+    k = N_SEQ - 1
+    for name, i in (("A", 6), ("B", 7)):
+        _assert_close(emu[i][:, k], plain[i][:, k], TOL[dtype][0], dtype,
+                      f"{name} of the short sequence")
+    a, b_ = emu[6][:, k], emu[7][:, k]
+    assert bool((a[SHORT:] == a[SHORT]).all())
+    assert bool((b_[SHORT:] == 0).all()) and float(b_[0]) > 0
+    assert float(a[SHORT]) > 0
+
+
+@pytest.mark.parametrize("w_span", [40, W_SPAN, 150])
+def test_inside_kernel_gen_reads_earlier_columns_only(w_span):
+    """The inside kernel computes gen, the interior-loop contraction, from
+    earlier columns only, a column ahead: K2's column u2 = 0 (a loop with
+    no unpaired base on one side, a bulge) must be zero in the tables."""
+    t = ab.make_tables(w_span, torch.float64)
+    assert bool((t.K2[:, 0] == 0).all())
+    assert float(t.K2[:, 1:].abs().max()) > 0
+
+
 def test_outside_kernel_source_matches_plain_version(runs):
     """Five stacked planes of the outside kernel against outside_pass, on
     the same outside grids and multi1."""
@@ -187,3 +216,48 @@ def test_outside_kernel_at_256_threads_window_energies(runs_256):
     for ep, ee in zip(e_plain, e_emu):
         assert np.isfinite(ee).all()
         assert np.abs(ee - ep).max() <= TOL[dtype][1]
+
+
+def _inside_at(emu_libs, tiny_batch, dtype, threads):
+    """The inside kernel at `threads` per CTA and the plain scans on the
+    same grids, and both chains' window energies (the plain outside pass
+    on either inside result)."""
+    sfx = "f64" if dtype == torch.float64 else "f32"
+    f_in = getattr(emu_libs[0], f"access_inside_{sfx}")
+    s, lens, n_max = tiny_batch
+    t = ab.make_tables(W_SPAN, dtype)
+    g = ab.make_grids(t, s, lens, n_max, BAND, dtype)
+    plain = acs.inside_scan(t, g, lens, n_max, BAND, dtype)
+    emu = acs._inside_call(f_in, t, g, lens, n_max, BAND, dtype, 0, threads)
+
+    def energies(ins):
+        og, m1 = ab.outside_inputs(t, s, lens, n_max, BAND, dtype, g, ins)
+        outs = acs.outside_scan(t, og, m1, n_max, BAND, dtype)
+        return _energies(t, g, s, lens, n_max, dtype, ins, outs)
+
+    return dtype, plain, emu, energies(plain), energies(emu)
+
+
+@pytest.fixture(scope="module", params=["float64", "float32"])
+def inside_256(request, emu_libs, tiny_batch):
+    return _inside_at(emu_libs, tiny_batch, ab._DTYPES[request.param], 256)
+
+
+def test_inside_kernel_at_256_threads_matches_plain_version(inside_256):
+    """Six stacked planes, A and B at 256 threads (eight warps) against
+    inside_pass + b_outer_scan, short sequence included."""
+    dtype, plain, emu, *_ = inside_256
+    for name, got, ref in zip(PLANES, emu, plain):
+        _assert_close(got, ref, TOL[dtype][0], dtype, name)
+    assert float(plain[0][:, N_SEQ - 1].abs().max()) > 0
+
+
+def test_inside_kernel_at_256_threads_window_energies(inside_256):
+    """Window energies with the inside kernel at 256 threads (then the
+    plain outside pass) against the plain chain."""
+    dtype, *_, e_plain, e_emu = inside_256
+    assert len(e_emu) == N_SEQ and len(e_emu[-1]) == SHORT - D + 1
+    for ep, ee in zip(e_plain, e_emu):
+        assert np.isfinite(ee).all()
+        assert np.abs(ee - ep).max() <= TOL[dtype][1]
+
