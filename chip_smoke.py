@@ -39,8 +39,11 @@ Phases (any failure ends the run with a non-zero exit code):
      max_ext=64; each with its time, the plain version's time and the
      card's least time for the same work;
   6. the ungapped kernel (a thread per hit) against its plain version on
-     the card, the same way: the main path's first launch and its first
-     4096+37 stage-1 hits, with the steps per hit;
+     the card, the same way: the main path's first launch, its first
+     4096+37 stage-1 hits, its first 20, and a mixed batch (its 1,024 hits
+     with the most steps, each among three with the fewest), with the
+     steps per hit and the lane efficiency of one thread per hit (steps
+     over 32 x the sum of each warp's largest step count);
   7. the accessibility scan kernels (the inside pass with both exterior
      scans; the outside pass) against their plain versions on the main
      path's first db batch and its first ris batch (their own shapes):
@@ -379,6 +382,16 @@ def ungapped_bound_ms(a, steps):
     t_ops = steps * UNGAPPED_OPS_PER_STEP / PEAK_FLOPS["float32"]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def lanes_one_per_hit(st) -> float:
+    """Lane efficiency of one thread per hit, with `st` steps per hit: the
+    steps over 32 x the sum, over warps of 32 consecutive hits, of the
+    warp's largest step count."""
+    import torch
+
+    warps = torch.nn.functional.pad(st, (0, (-st.numel()) % 32)).view(-1, 32)
+    return float(st.sum()) / (32 * float(warps.max(dim=1).values.sum()))
 
 
 def access_bound_ms(B: int, n1: int, band: int, item: int, inside: bool,
@@ -843,23 +856,36 @@ def main() -> int:
         ms = cuda_ms(lambda: ukernel(*a), 20)
         plain = cuda_ms(lambda: uop.ungapped_extend_flat(*a), 1)
         bound, bound_by = ungapped_bound_ms(a, steps)
-        steps = (steps[0] + steps[1]).float()
+        st = (steps[0] + steps[1]).float()
         print(f"[kernel] ungapped_extend {label} B={a[0].shape[0]}: "
               f"{ms:.4f} ms, plain {plain:.2f} ms, bound {bound:.6f} ms "
               f"({bound_by}), {ms / bound:.1f}x bound, steps per hit mean "
-              f"{float(steps.mean()):.2f} max {int(steps.max())}, max "
+              f"{float(st.mean()):.2f} max {int(st.max())}, lane efficiency "
+              f"{lanes_one_per_hit(st):.4f}, max "
               f"|floats diff| {diff:.3g} {tag}", flush=True)
         return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by,
-                    err=diff)
+                    err=diff, steps=st)
 
     check(len(first_ungapped) == 1, "no ungapped kernel inputs captured")
     ua = first_ungapped[0]
     urec = hold_ungapped("main-path batch", ua)
     check(ua[0].shape[0] >= 4096 + 37,
           "too few stage-1 hits for the ragged ungapped batch")
-    ubatch = tuple(x[:4096 + 37].contiguous() if torch.is_tensor(x) else x
-                   for x in ua)
-    uerr = max(urec["err"], hold_ungapped("ragged", ubatch)["err"])
+
+    def sub_batch(idx):
+        return tuple(x[idx].contiguous() if torch.is_tensor(x) else x
+                     for x in ua)
+
+    # a batch smaller than a warp; a mixed one: the main path's 1,024 hits
+    # with the most steps, each among three of those with the fewest, so
+    # that long and short hits share every warp
+    by_steps = torch.argsort(urec["steps"], descending=True, stable=True)
+    mixed = torch.cat([by_steps[:1024, None],
+                       by_steps.flip(0)[:3072].view(1024, 3)], 1).view(-1)
+    uerr = max([urec["err"]] + [
+        hold_ungapped(label, sub_batch(idx))["err"] for label, idx in (
+            ("ragged", slice(0, 4096 + 37)), ("small", slice(0, 20)),
+            ("mixed", mixed))])
 
     # ---- 7. the accessibility scan kernels vs their plain versions ------
     def max_rel(got, ref):

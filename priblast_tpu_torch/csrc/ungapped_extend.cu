@@ -1,5 +1,6 @@
-// Ungapped extension for Hopper (sm_90a): one thread per hit, each hit run
-// to its own stop.
+// Ungapped extension for Hopper (sm_90a): a thread per hit, each hit run
+// to its own stop, with the values of a step carried to the next, 32-bit
+// positions and each step's loads issued a step ahead.
 //
 // Replaces the XLA device programs that compute the ungapped extension in
 // the JAX package: priblast_tpu/search/ungapped.py:ungapped_core (:94, a
@@ -14,7 +15,8 @@
 // search/ungapped.py:ungapped_extend_flat, operation for operation in
 // float32, so both give the same bits: build with -fmad=false and without
 // fast-math (no contraction, every /100 an IEEE division). The plain
-// version's masked "+ 0" adds are kept (-0.0f + 0.0f is +0.0f). Every
+// version's masked "+ 0" adds are kept (-0.0f + 0.0f is +0.0f), and so is
+// its strict < for the running minimum (the first argmin on ties). Every
 // buffer position is clamped to its buffer, as the plain version's `_at`
 // does, and every table index to its table, as `_take` does; a table is
 // read only where its value is used.
@@ -23,22 +25,41 @@
 // character, a buffer edge or the dropout; then the right phase steps from
 // the seed's end up. A step adds the accessibility increment, the loop
 // energy of a paired step (looked up from the characters in the Turner
-// tables) and keeps the running minimum with its argmin (strict <).
+// tables) and keeps the running minimum with its argmin.
 //
-// Mapping: one thread per hit, kThreads threads per block. The block
-// stages the small tables (BP_pair, rtype, stack37, mismatchI37,
-// internal_loop37: 1,148 bytes) in shared memory; int11, int21 and int22
-// are read through the read-only cache (__ldg). A warp runs as long as its
-// slowest hit.
-//
-// Bound on this card: a step reads two characters (int64) and four
-// accessibility entries (float32) at positions that follow the hit, and
-// does ~40 integer and float operations. The steps of one hit are a chain
-// of dependent loads, so the kernel depends on many threads in flight to
-// hide their latency.
+// Bound on this card: bytes. A step reads two characters (int64) and three
+// accessibility entries (float32) at positions that follow the hit. The
+// steps of one hit are a chain, so the kernel's time is its instructions
+// and its latencies, which the design cuts:
+// - nothing is loaded twice: a thread carries the previous step's
+//   accessibility entry (q_acc left, db_acc right), the pair type of the
+//   last pair, the previous step's characters (just inside the new pair)
+//   and those of the step after the last pair (just inside the last
+//   pair), each the plain version's load at the same clamped position;
+// - 32-bit positions: each hit's 64-bit base positions are narrowed once
+//   (`narrow`), then every step clamps and indexes in 32 bits;
+// - loads a step ahead: a step's five loads are issued before the step
+//   before it computes (every load is clamped, so a load past the phase's
+//   end is harmless), so no load from device memory is on a step's chain
+//   but the int11 and int22 lookups;
+// - at most 64 registers (__launch_bounds__(256, 4)): 32 warps per SM hide
+//   the latencies that remain.
+// Refilling a warp's lanes from its own range of hits as they stop (one
+// step body for both phases, a ballot to hand out hits) keeps 92% of the
+// lanes busy against 61% here, but costs more than it saves on this card:
+// the body with both phases, the hand-out and each new hit's loads took
+// 0.81-1.10 ms on the main path's first batch, against 0.43 ms for this
+// kernel (PERF.md; ungapped_ab.py).
+// The small tables (BP_pair, rtype, stack37, mismatchI37, internal_loop37:
+// 1,148 bytes) live in shared memory; int11 and int22 are read through the
+// read-only cache (__ldg): staging int11 in every block cost more than it
+// saved. int21 is never read: both coordinates move together, so a loop
+// has as many unpaired bases on each side (u1 = u2;
+// tests/test_torch_kernel_emu.py holds the plain version to that).
 //
 // C entry point (ctypes): ungapped_extend. It launches on the given stream
-// and returns cudaGetLastError().
+// and returns cudaGetLastError(), or cudaErrorInvalidValue for a buffer or
+// batch of more than 2^30 entries.
 
 #include <cuda_runtime.h>
 
@@ -46,12 +67,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;   // threads per block
+constexpr int kMinBlocks = 4;   // blocks per SM: at most 64 registers
+constexpr int kMaxSize = 1 << 30;  // entries per buffer, hits per batch
 // table sizes (entries) and the shared-memory layout of the small ones
 constexpr int kNBp = 25, kNRt = 7, kNStack = 49, kNMism = 175,
-              kNIntloop = 31, kNI11 = 1600, kNI21 = 8000, kNI22 = 40000;
-constexpr int kSmemBytes =
-    4 * (kNBp + kNRt + kNStack + kNMism + kNIntloop);
+              kNIntloop = 31, kNI11 = 1600, kNI22 = 40000;
+constexpr int kSmemBytes = 4 * (kNBp + kNRt + kNStack + kNMism + kNIntloop);
 
 struct Params {
   const int64_t *q_enc, *db_seq;
@@ -60,41 +82,54 @@ struct Params {
       *aoff, *coff;
   const float *acc_e, *hyb_e;
   const int64_t *bp, *rtype;
-  const float *stack, *mism, *intloop, *i11, *i21, *i22;
+  const float *stack, *mism, *intloop, *i11, *i22;
   int64_t *ints;   // [4, B]: q_sp, db_sp, new length (q_len = db_len),
                    //         dbseq_start
   float *floats;   // [3, B]: acc_e, hyb_e, energy
-  int64_t n_qenc, n_db, n_qacc, n_qcond, n_dacc, n_dcond, B;
+  int n_qenc, n_db, n_qacc, n_qcond, n_dacc, n_dcond;
+  int64_t B;
   int d, dropout;
 };
 
 struct Tables {
   const int *bp, *rt;
-  const float *stack, *mism, *intloop, *i11, *i21, *i22;
+  const float *stack, *mism, *intloop, *i11, *i22;
 };
 
-__device__ __forceinline__ int64_t clamp_pos(int64_t pos, int64_t n) {
+// A phase takes at most kSlack steps, with exact 32-bit positions: a hit's
+// 64-bit base position in a buffer of n <= kMaxSize entries is narrowed to
+// [-kSlack, n - 1 + kSlack], which moves no position base +- s
+// (s <= kSlack) across the clamp to [0, n - 1], and keeps base +- (s + 1)
+// (the loads a step ahead) within int32. Both loops stop after kSlack
+// steps, where the plain version would go on; no real phase comes near it
+// (a sequence ends at a terminator).
+constexpr int kSlack = (1 << 29) - 1;
+
+__device__ __forceinline__ int narrow(int64_t pos, int n) {
+  return (int)(pos < -kSlack ? -kSlack
+                             : (pos > n - 1 + kSlack ? n - 1 + kSlack : pos));
+}
+
+__device__ __forceinline__ int clamp_pos(int pos, int n) {
   return pos < 0 ? 0 : (pos > n - 1 ? n - 1 : pos);
 }
 
-__device__ __forceinline__ int64_t at(const int64_t *buf, int64_t n,
-                                      int64_t pos) {
-  return (int64_t)__ldg(reinterpret_cast<const long long *>(buf)
-                        + clamp_pos(pos, n));
+// an encoded character (0..9, utils/alphabet.py), read as int
+__device__ __forceinline__ int at(const int64_t *buf, int n, int pos) {
+  return (int)__ldg(reinterpret_cast<const long long *>(buf)
+                    + clamp_pos(pos, n));
 }
 
-__device__ __forceinline__ float at(const float *buf, int64_t n,
-                                    int64_t pos) {
+__device__ __forceinline__ float at(const float *buf, int n, int pos) {
   return __ldg(buf + clamp_pos(pos, n));
 }
 
-__device__ __forceinline__ int64_t mapc(int64_t v) {
+__device__ __forceinline__ int mapc(int v) {
   // encoded char -> energy index (2..5 -> 1..4; soft-masked 6..9 -> 1..4)
   return v <= 5 ? v - 1 : v - 5;
 }
 
-__device__ __forceinline__ int pair_type(const Tables &t, int64_t qc,
-                                         int64_t dc) {
+__device__ __forceinline__ int pair_type(const Tables &t, int qc, int dc) {
   return t.bp[clamp_pos(mapc(qc) * 5 + mapc(dc), kNBp)];
 }
 
@@ -103,33 +138,30 @@ __device__ __forceinline__ int rtype_of(const Tables &t, int type) {
 }
 
 // Hybridization loop energy / 100, no-bulge variant (reference:
-// src/ungapped_extension.cpp:157-186); fi/fj/fp/fq are flat buffer
-// positions of the outer (i, j) and inner (p, q) pairs.
-__device__ float loop37(const Params &P, const Tables &t, int type1,
-                        int type2, int64_t fi, int64_t fj, int64_t fp,
-                        int64_t fq, int64_t u1, int64_t u2) {
+// src/ungapped_extension.cpp:157-186), for an outer pair of type type1 and
+// an inner pair of type type2 with u unpaired bases on each side (u1 = u2
+// = u: the plain version's int21 branches, u1 + u2 = 3, are never taken).
+// a, b are the characters just inside the outer pair, c, dch just inside
+// the inner one (query, db), as the plain version reads them.
+__device__ float loop37(const Tables &t, int type1, int type2, int a, int b,
+                        int c, int dch, int u) {
   float z;
-  if (u1 == 0 && u2 == 0) {
+  if (u == 0) {
     z = t.stack[clamp_pos(type1 * 7 + type2, kNStack)];
   } else {
-    const int64_t a = mapc(at(P.q_enc, P.n_qenc, fi + 1));
-    const int64_t b = mapc(at(P.db_seq, P.n_db, fj + 1));
-    const int64_t c = mapc(at(P.q_enc, P.n_qenc, fp - 1));
-    const int64_t dch = mapc(at(P.db_seq, P.n_db, fq - 1));
-    const int64_t t12 = type1 * 8 + type2;
-    if (u1 + u2 == 2) {
+    a = mapc(a);
+    b = mapc(b);
+    c = mapc(c);
+    dch = mapc(dch);
+    const int t12 = type1 * 8 + type2;
+    if (u == 1) {
       z = __ldg(t.i11 + clamp_pos((t12 * 5 + a) * 5 + b, kNI11));
-    } else if (u1 == 1 && u2 == 2) {
-      z = __ldg(t.i21 + clamp_pos(((t12 * 5 + a) * 5 + dch) * 5 + b, kNI21));
-    } else if (u1 == 2 && u2 == 1) {
-      z = __ldg(t.i21 + clamp_pos((((type2 * 8 + type1) * 5 + dch) * 5 + a)
-                                      * 5 + c, kNI21));
-    } else if (u1 == 2 && u2 == 2) {
+    } else if (u == 2) {
       z = __ldg(t.i22 + clamp_pos((((t12 * 5 + a) * 5 + c) * 5 + dch) * 5 + b,
                                   kNI22));
     } else {
-      const int64_t u = u1 + u2;
-      z = t.intloop[u < 0 ? 0 : (u > 30 ? 30 : u)]
+      const int uu = 2 * u;
+      z = t.intloop[uu > 30 ? 30 : uu]
           + t.mism[clamp_pos((type1 * 5 + a) * 5 + b, kNMism)];
       z = z + t.mism[clamp_pos((type2 * 5 + dch) * 5 + c, kNMism)];
     }
@@ -137,25 +169,26 @@ __device__ float loop37(const Params &P, const Tables &t, int type1,
   return z / 100.0f;
 }
 
-__global__ void ungapped_kernel(Params P) {
+// launched with kThreads threads per block; blockDim.x, not kThreads, in
+// the body: with the constant nvcc's code took 1.5% longer (PERF.md)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    ungapped_kernel(Params P) {
   extern __shared__ __align__(16) unsigned char smem[];
   int *s_bp = reinterpret_cast<int *>(smem);
   int *s_rt = s_bp + kNBp;
   float *s_stack = reinterpret_cast<float *>(s_rt + kNRt);
   float *s_mism = s_stack + kNStack;
   float *s_intloop = s_mism + kNMism;
-  for (int k = threadIdx.x; k < kNBp; k += blockDim.x)
-    s_bp[k] = (int)P.bp[k];
+  for (int k = threadIdx.x; k < kNBp; k += blockDim.x) s_bp[k] = (int)P.bp[k];
   for (int k = threadIdx.x; k < kNRt; k += blockDim.x)
     s_rt[k] = (int)P.rtype[k];
   for (int k = threadIdx.x; k < kNStack; k += blockDim.x)
     s_stack[k] = P.stack[k];
-  for (int k = threadIdx.x; k < kNMism; k += blockDim.x)
-    s_mism[k] = P.mism[k];
+  for (int k = threadIdx.x; k < kNMism; k += blockDim.x) s_mism[k] = P.mism[k];
   for (int k = threadIdx.x; k < kNIntloop; k += blockDim.x)
     s_intloop[k] = P.intloop[k];
   __syncthreads();
-  const Tables t{s_bp, s_rt, s_stack, s_mism, s_intloop, P.i11, P.i21, P.i22};
+  const Tables t{s_bp, s_rt, s_stack, s_mism, s_intloop, P.i11, P.i22};
 
   const int64_t h = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (h >= P.B) return;
@@ -168,97 +201,143 @@ __global__ void ungapped_kernel(Params P) {
   const float energy0 = acc0 + hyb0;
 
   // ---- left phase (reference :55-94) ----
-  int64_t i = q_sp, j = db_sp, id_end = dbseq_start + length - 1;
-  int64_t p = q_sp, q = db_sp;
+  // Step sn reads the query at q_sp - sn and the db at db_sp - sn. Carried
+  // between steps instead of loaded again: q_acc at the previous position
+  // (acc_prev), the pair type of the last pair (tp), the previous step's
+  // characters (pq, pd: just inside the new pair) and the characters of
+  // the step after the last pair (iq, id: just inside it). Each is the
+  // load the plain version makes, at the same clamped position.
+  // Positions are 32-bit: each buffer's base narrowed once (narrow).
+  const int64_t m = q_sp < db_sp ? q_sp : db_sp;  // i_n or j_n < 0 past it
+  const int lim = (int)(m < -1 ? -1 : (m > kSlack ? kSlack : m));
+  int bq = narrow(qb + q_sp, P.n_qenc), bd = narrow(dbb + db_sp, P.n_db);
+  int ba = narrow(qab + q_sp, P.n_qacc), bb = narrow(qab + q_sp + d, P.n_qcond);
+  int bc = narrow(coff + dbseq_start + length - 1, P.n_dcond);
   float e = energy0, a = acc0, hh = hyb0;
   float min_e = energy0, min_a = acc0, min_h = hyb0;
-  int64_t min_p = q_sp, min_q = db_sp;
-  for (;;) {
-    const int64_t i_n = i - 1, j_n = j - 1, id_n = id_end + 1;
-    const int64_t qc = at(P.q_enc, P.n_qenc, qb + i_n);
-    const int64_t dc = at(P.db_seq, P.n_db, dbb + j_n);
-    if (i_n < 0 || j_n < 0 || qc < 2 || dc < 2) break;
-    const float dacc = ((at(P.q_acc, P.n_qacc, qab + i_n)
-                         - at(P.q_acc, P.n_qacc, qab + i_n + 1))
-                        + at(P.q_cond, P.n_qcond, qab + i_n + d))
-                       + at(P.db_cond, P.n_dcond, coff + id_n);
+  int s_pair = 0, s_min_l = 0;
+  int pq = at(P.q_enc, P.n_qenc, bq), pd = at(P.db_seq, P.n_db, bd);
+  int tp = pair_type(t, pq, pd);
+  int iq = 0, id = 0;
+  float acc_prev = at(P.q_acc, P.n_qacc, ba);
+  // step sn's five loads are issued during step sn - 1 (a clamped load
+  // past the phase's end is harmless)
+  int qc = at(P.q_enc, P.n_qenc, bq - 1), dc = at(P.db_seq, P.n_db, bd - 1);
+  float xa = at(P.q_acc, P.n_qacc, ba - 1), xb = at(P.q_cond, P.n_qcond, bb - 1);
+  float xc = at(P.db_cond, P.n_dcond, bc + 1);
+  for (int sn = 1;; ++sn) {
+    if (sn > lim || qc < 2 || dc < 2) break;
+    const int qc_n = at(P.q_enc, P.n_qenc, bq - sn - 1);
+    const int dc_n = at(P.db_seq, P.n_db, bd - sn - 1);
+    const float xa_n = at(P.q_acc, P.n_qacc, ba - sn - 1);
+    const float xb_n = at(P.q_cond, P.n_qcond, bb - sn - 1);
+    const float xc_n = at(P.db_cond, P.n_dcond, bc + sn + 1);
+    const float dacc = ((xa - acc_prev) + xb) + xc;
+    acc_prev = xa;
     e = e + dacc;
     a = a + dacc;
+    const int u = sn - s_pair - 1;
+    if (u == 0) {
+      iq = qc;
+      id = dc;
+    }
     const int type1 = pair_type(t, qc, dc);
     const bool paired = type1 != 0;
     float le = 0.0f;
-    if (paired) {
-      const int type2 = rtype_of(
-          t, pair_type(t, at(P.q_enc, P.n_qenc, qb + p),
-                       at(P.db_seq, P.n_db, dbb + q)));
-      le = loop37(P, t, type1, type2, qb + i_n, dbb + j_n, qb + p, dbb + q,
-                  p - i_n - 1, q - j_n - 1);
-    }
+    if (paired) le = loop37(t, type1, rtype_of(t, tp), pq, pd, iq, id, u);
     e = e + le;
     hh = hh + le;
     if (paired && e < min_e) {
       min_e = e;
       min_a = a;
       min_h = hh;
-      min_p = i_n;
-      min_q = j_n;
+      s_min_l = sn;
     }
     if (paired) {
-      p = i_n;
-      q = j_n;
+      s_pair = sn;
+      tp = type1;
     }
-    i = i_n;
-    j = j_n;
-    id_end = id_n;
-    if (min_p - i_n >= dropout) break;
+    pq = qc;
+    pd = dc;
+    if (sn - s_min_l >= dropout) break;
+    qc = qc_n;
+    dc = dc_n;
+    xa = xa_n;
+    xb = xb_n;
+    xc = xc_n;
   }
 
   // ---- right phase (reference :96-145) ----
-  int64_t k = q_sp + length - 1, l = db_sp + length - 1, ids = dbseq_start;
-  int64_t r = k, s = l;
+  // Step sn reads the query at k0 + sn, the db at l0 + sn and the db
+  // accessibility at dbseq_start - sn. Carried as in the left phase; here
+  // the previous step's characters are just inside the new (inner) pair
+  // and those of the step after the last pair just inside the last
+  // (outer) one.
+  const int64_t k0 = q_sp + length - 1, l0 = db_sp + length - 1;
+  bq = narrow(qb + k0, P.n_qenc);
+  bd = narrow(dbb + l0, P.n_db);
+  ba = narrow(qab + k0, P.n_qcond);
+  bb = narrow(aoff + dbseq_start, P.n_dacc);
+  bc = narrow(coff + dbseq_start + d, P.n_dcond);
   e = min_e;
   a = min_a;
   hh = min_h;
-  int64_t min_r = k, min_ids = dbseq_start;
-  for (;;) {
-    const int64_t k_n = k + 1, l_n = l + 1, ids_n = ids - 1;
-    const int64_t qc = at(P.q_enc, P.n_qenc, qb + k_n);
-    const int64_t dc = at(P.db_seq, P.n_db, dbb + l_n);
-    if (qc < 2 || dc < 2) break;
-    const float dacc = ((at(P.q_cond, P.n_qcond, qab + k_n)
-                         + at(P.db_acc, P.n_dacc, aoff + ids_n))
-                        - at(P.db_acc, P.n_dacc, aoff + ids_n + 1))
-                       + at(P.db_cond, P.n_dcond, coff + ids_n + d);
+  s_pair = 0;
+  int s_min_r = 0;
+  pq = at(P.q_enc, P.n_qenc, bq);
+  pd = at(P.db_seq, P.n_db, bd);
+  tp = pair_type(t, pq, pd);
+  iq = id = 0;
+  acc_prev = at(P.db_acc, P.n_dacc, bb);
+  qc = at(P.q_enc, P.n_qenc, bq + 1);
+  dc = at(P.db_seq, P.n_db, bd + 1);
+  xa = at(P.q_cond, P.n_qcond, ba + 1);
+  xb = at(P.db_acc, P.n_dacc, bb - 1);
+  xc = at(P.db_cond, P.n_dcond, bc - 1);
+  for (int sn = 1;; ++sn) {
+    if (sn > kSlack || qc < 2 || dc < 2) break;
+    const int qc_n = at(P.q_enc, P.n_qenc, bq + sn + 1);
+    const int dc_n = at(P.db_seq, P.n_db, bd + sn + 1);
+    const float xa_n = at(P.q_cond, P.n_qcond, ba + sn + 1);
+    const float xb_n = at(P.db_acc, P.n_dacc, bb - sn - 1);
+    const float xc_n = at(P.db_cond, P.n_dcond, bc - sn - 1);
+    const float dacc = ((xa + xb) - acc_prev) + xc;
+    acc_prev = xb;
     e = e + dacc;
     a = a + dacc;
-    const int type2 = rtype_of(t, pair_type(t, qc, dc));
+    const int u = sn - s_pair - 1;
+    if (u == 0) {
+      iq = qc;
+      id = dc;
+    }
+    const int type = pair_type(t, qc, dc);
+    const int type2 = rtype_of(t, type);
     const bool paired = type2 != 0;
     float le = 0.0f;
-    if (paired) {
-      const int type1 = pair_type(t, at(P.q_enc, P.n_qenc, qb + r),
-                                  at(P.db_seq, P.n_db, dbb + s));
-      le = loop37(P, t, type1, type2, qb + r, dbb + s, qb + k_n, dbb + l_n,
-                  k_n - r - 1, l_n - s - 1);
-    }
+    if (paired) le = loop37(t, tp, type2, iq, id, pq, pd, u);
     e = e + le;
     hh = hh + le;
     if (paired && e < min_e) {
       min_e = e;
       min_a = a;
       min_h = hh;
-      min_r = k_n;
-      min_ids = ids_n;
+      s_min_r = sn;
     }
     if (paired) {
-      r = k_n;
-      s = l_n;
+      s_pair = sn;
+      tp = type;
     }
-    k = k_n;
-    l = l_n;
-    ids = ids_n;
-    if (k_n - min_r >= dropout) break;
+    pq = qc;
+    pd = dc;
+    if (sn - s_min_r >= dropout) break;
+    qc = qc_n;
+    dc = dc_n;
+    xa = xa_n;
+    xb = xb_n;
+    xc = xc_n;
   }
-
+  const int64_t min_p = q_sp - s_min_l, min_q = db_sp - s_min_l;
+  const int64_t min_r = k0 + s_min_r, min_ids = dbseq_start - s_min_r;
   const int64_t B = P.B;
   P.ints[h] = min_p;
   P.ints[B + h] = min_q;
@@ -278,6 +357,9 @@ __global__ void ungapped_kernel(Params P) {
 // iparams: d, dropout
 extern "C" int ungapped_extend(void *const *ptrs, const long long *sizes,
                                const int *iparams, void *stream) {
+  for (int k = 0; k < 7; ++k)  // the wrapper checks the same
+    if (sizes[k] > kMaxSize || (k < 6 && sizes[k] < 1))
+      return (int)cudaErrorInvalidValue;
   Params p;
   p.q_enc = (const int64_t *)ptrs[0];
   p.db_seq = (const int64_t *)ptrs[1];
@@ -302,23 +384,20 @@ extern "C" int ungapped_extend(void *const *ptrs, const long long *sizes,
   p.mism = (const float *)ptrs[20];
   p.intloop = (const float *)ptrs[21];
   p.i11 = (const float *)ptrs[22];
-  p.i21 = (const float *)ptrs[23];
-  p.i22 = (const float *)ptrs[24];
+  p.i22 = (const float *)ptrs[24];  // ptrs[23], int21, is never read
   p.ints = (int64_t *)ptrs[25];
   p.floats = (float *)ptrs[26];
-  p.n_qenc = sizes[0];
-  p.n_db = sizes[1];
-  p.n_qacc = sizes[2];
-  p.n_qcond = sizes[3];
-  p.n_dacc = sizes[4];
-  p.n_dcond = sizes[5];
+  p.n_qenc = (int)sizes[0];
+  p.n_db = (int)sizes[1];
+  p.n_qacc = (int)sizes[2];
+  p.n_qcond = (int)sizes[3];
+  p.n_dacc = (int)sizes[4];
+  p.n_dcond = (int)sizes[5];
   p.B = sizes[6];
   p.d = iparams[0];
   p.dropout = iparams[1];
   if (p.B == 0) return 0;
-  const int64_t blocks = (p.B + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  const int grid = (int)blocks;
+  const int grid = (int)((p.B + kThreads - 1) / kThreads);
   ungapped_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

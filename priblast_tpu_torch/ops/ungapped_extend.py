@@ -1,5 +1,7 @@
 """The ungapped extension: a hand-written CUDA kernel for Hopper
-(csrc/ungapped_extend.cu, one thread per hit) and its wrapper.
+(csrc/ungapped_extend.cu: a thread per hit, the values of a step carried
+to the next, 32-bit positions, each step's loads issued a step ahead) and
+its wrapper.
 
 Replaces the JAX package's XLA programs for this step:
 priblast_tpu/search/ungapped.py:ungapped_core (:94) and its windowed form
@@ -31,6 +33,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 launches = 0  # kernel launches by ungapped_extend(); plain calls not counted
+# entries of a flat buffer, and hits of a batch, that the kernel's 32-bit
+# positions allow (csrc/ungapped_extend.cu: kMaxSize)
+MAX_ENTRIES = 1 << 30
 
 INT_KEYS = ("q_sp", "db_sp", "q_len", "db_len", "dbseq_start")
 FLOAT_KEYS = ("acc_e", "hyb_e", "energy")
@@ -41,6 +46,19 @@ _TABLES = (("bp", 25), ("rtype", 7), ("stack", 49), ("mismI", 175),
            ("intloop", 31), ("i11", 1600), ("i21", 8000), ("i22", 40000))
 _COLS = ("q_sp", "db_sp", "length", "dbseq_start", "qb", "qab", "dbb", "aoff",
          "coff")
+# the flat buffers, in the kernel's pointer order
+_BUFS = ("q_enc", "db_seq", "q_acc", "q_cond", "db_acc", "db_cond")
+
+
+def check_sizes(B: int, buffer_sizes: dict) -> None:
+    """Raise ValueError if the batch (B hits) or a flat buffer
+    (buffer_sizes: name -> entries) is larger than the kernel's 32-bit
+    positions allow (MAX_ENTRIES). The kernel narrows each hit's 64-bit
+    base positions itself, so no column value needs a check."""
+    for name, n in (("the batch", B), *buffer_sizes.items()):
+        if n > MAX_ENTRIES:
+            raise ValueError(f"{name} has {n} entries; the ungapped kernel's "
+                             f"32-bit positions allow {MAX_ENTRIES}")
 
 
 def build() -> Path:
@@ -88,12 +106,12 @@ def ungapped_extend(q_sp, db_sp, length, dbseq_start, acc_e, hyb_e, qb, qab,
     if len(bufs) != 3 or len(dbufs) != 3:
         raise ValueError("bufs and dbufs each hold three buffers")
     flat = (bufs[0], dbufs[0], bufs[1], bufs[2], dbufs[1], dbufs[2])
-    for name, t in zip(("q_enc", "db_seq", "q_acc", "q_cond", "db_acc",
-                        "db_cond"), flat):
+    for name, t in zip(_BUFS, flat):
         nvcc.check_tensor(t, name, None, torch.int64 if name in (
             "q_enc", "db_seq") else torch.float32, dev)
         if t.shape[0] == 0:
             raise ValueError(f"{name} is empty")
+    check_sizes(B, {name: t.shape[0] for name, t in zip(_BUFS, flat)})
     if dev.type == "cpu":
         return ungapped_extend_flat(q_sp, db_sp, length, dbseq_start, acc_e,
                                     hyb_e, qb, qab, dbb, aoff, coff, bufs,

@@ -38,7 +38,8 @@ inline EmuDim blockDim, gridDim;
 struct int4 { int x, y, z, w; };
 typedef void *cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidConfiguration = 9 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorInvalidConfiguration = 9 };
 enum { cudaDevAttrMultiProcessorCount = 16,
        cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };

@@ -13,6 +13,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import ungapped_cases as uc
 
 from priblast_tpu_torch import cli
 from priblast_tpu_torch.accessibility import batched as ab
@@ -139,6 +140,42 @@ def test_ungapped_kernel_matches_plain_version_on_the_card(tiny_mids,
 
 
 @pytest.mark.gpu
+def test_ungapped_kernel_on_a_mixed_batch_on_the_card(tiny_mids):
+    """The ungapped kernel on a batch in which long hits (the tiny
+    goldens' stage-1 hits with the most steps) share every warp with short
+    ones (a tie batch of 10-nt windows), and on its first 1, 31 and 33
+    hits: the kernel's columns equal the plain version's on the card."""
+    from priblast_tpu_torch.search import ungapped as ung
+
+    dev = _card()
+    chunks, queries, _mids, pres = tiny_mids
+    cpu = torch.device("cpu")
+    qpack = tpl.QueryPack([q[0] for q in queries], [q[2] for q in queries],
+                          [q[3] for q in queries], [q[1] for q in queries],
+                          device=cpu)
+    dbpack = tpl.DbPack(chunks, device=cpu)
+    stream = tpl._concat_groups(pres, [(q, 0) for q in range(len(pres))])
+    tpl._hit_bases(stream, qpack, dbpack)
+    tiny = uc.stage1_part(stream.soa, qpack.bufs, dbpack.bufs)
+    left, right = ung.extend_steps(*uc.args_of(tiny))
+    mixed = uc.mixed_batch(tiny, left + right,
+                           uc.tie_batch(n_hits=512, length=10))
+
+    def on_card(x):
+        if torch.is_tensor(x):
+            return x.to(dev)
+        return tuple(map(on_card, x)) if isinstance(x, tuple) else x
+
+    for n in (len(mixed[1]), 1, 31, 33):
+        args = on_card(uc.args_of(uc.select(mixed, torch.arange(n))))
+        got = ungapped_op.ungapped_extend(*args)
+        ref = ungapped_op.ungapped_extend_flat(*args)
+        torch.cuda.synchronize()
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), (n, k)
+
+
+@pytest.mark.gpu
 def test_ris_gpu_engine_on_the_card(tmp_path):
     """`ris --engine gpu` on the card: the golden hits and base pairs,
     energies within the float32 engine's 2e-3, through the fused path's
@@ -237,6 +274,27 @@ def test_ungapped_wrapper_rejects_bad_inputs(bad):
         args[12] = (args[12][0].int(), *args[12][1:])  # db_seq
     with pytest.raises(ValueError):
         ungapped_op.ungapped_extend(*args)
+
+
+def test_ungapped_wrapper_rejects_sizes_past_32_bits():
+    """The kernel indexes in 32 bits: a flat buffer or a batch of more
+    than MAX_ENTRIES = 2^30 entries raises ValueError (sizes given, not
+    allocated), and ungapped_extend makes the same check."""
+    sizes = {name: ungapped_op.MAX_ENTRIES for name in ungapped_op._BUFS}
+    ungapped_op.check_sizes(ungapped_op.MAX_ENTRIES, sizes)
+    for name in ungapped_op._BUFS:
+        with pytest.raises(ValueError, match=name):
+            ungapped_op.check_sizes(5, {**sizes, name: 2 ** 31})
+    with pytest.raises(ValueError, match="batch"):
+        ungapped_op.check_sizes(ungapped_op.MAX_ENTRIES + 1, sizes)
+    calls = []
+    check = ungapped_op.check_sizes
+    try:
+        ungapped_op.check_sizes = lambda B, s: calls.append((B, s))
+        ungapped_op.ungapped_extend(*_ungapped_args())
+    finally:
+        ungapped_op.check_sizes = check
+    assert calls == [(3, dict.fromkeys(ungapped_op._BUFS, 40))]
 
 
 def _access_batch(dev, n_seq=5, pad_rows=2, dtype=torch.float32):

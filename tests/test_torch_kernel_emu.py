@@ -3,7 +3,10 @@ the CUDA built-ins (tests/cuda_emu/cuda_runtime.h: one std::thread per
 CUDA thread), against their plain PyTorch versions on the tiny goldens:
 the gapped kernel (one warp per block) on the mid-stage hits, integers,
 traceback lists and floats identical; the ungapped kernel (a thread per
-hit) on the stage-1 hits, integers and float32 energies identical.
+hit) on the stage-1 hits, on exact argmin ties, on a batch that mixes
+long and short hits in every warp, on batches smaller than a warp or
+ending inside a warp and on hits that step past both ends of the flat
+buffers, integers and float32 energies identical.
 
 This runs the kernel's own arithmetic, indexing and warp-level protocol on
 a machine without a card; it does not replace the comparison on the card
@@ -21,6 +24,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import ungapped_cases as uc
 
 from priblast_tpu_torch.models import db as tdb
 from priblast_tpu_torch.ops import gapped_sweep as sweep_op
@@ -172,33 +176,6 @@ def test_ungapped_kernel_source_matches_plain_version_in_emulation(
     assert int(sum(x.sum() for x in steps)) > 2 * len(sel)  # hits extend
 
 
-def _tie_batch(n_hits=20000, length=24, seed=1):
-    """Random query/db windows around a G-C seed with zero accessibility,
-    so every energy change is a loop energy: some hits reach an earlier
-    minimum again exactly (a loop energy and a later one cancel)."""
-    rng = np.random.default_rng(seed)
-    q = rng.integers(2, 6, (n_hits, length))
-    d = rng.integers(2, 6, (n_hits, length))
-    mid = length // 2
-    q[:, mid], d[:, mid] = 4, 3
-    base = np.arange(n_hits) * (length + 1) + 1
-    qbuf = np.zeros(n_hits * (length + 1) + 8, np.int64)
-    dbuf = np.zeros_like(qbuf)
-    qbuf[base[:, None] + np.arange(length)] = q
-    dbuf[base[:, None] + np.arange(length)] = d
-    zero = torch.zeros(len(qbuf), dtype=torch.float32)
-
-    def i64(a):
-        return torch.as_tensor(np.broadcast_to(a, (n_hits,)).copy(),
-                               dtype=torch.int64)
-
-    cols = (i64(mid), i64(mid), i64(1), i64(length // 4), i64(base),
-            i64(base), i64(base), i64(0), i64(0))
-    return (cols, torch.zeros(n_hits), torch.full((n_hits,), -4.0),
-            (torch.as_tensor(qbuf), zero, zero),
-            (torch.as_tensor(dbuf), zero, zero))
-
-
 def test_ungapped_kernel_source_keeps_the_first_minimum_on_ties(tmp_path):
     """On exact ties the running minimum keeps its first position (strict
     <, as the reference). The batch holds such ties: the plain version
@@ -206,7 +183,7 @@ def test_ungapped_kernel_source_keeps_the_first_minimum_on_ties(tmp_path):
     others, the emulated kernel equals the plain version bit for bit."""
     from priblast_tpu_torch.search import ungapped as ung
 
-    cols, acc_e, hyb_e, qbufs, dbufs = _tie_batch()
+    cols, acc_e, hyb_e, qbufs, dbufs = uc.tie_batch()
     args = (*cols[:4], acc_e, hyb_e, *cols[4:], qbufs, dbufs, 5, 5)
     src = inspect.getsource(ung._extend)
     assert src.count("(e < min_e)") == 2
@@ -225,3 +202,153 @@ def test_ungapped_kernel_source_keeps_the_first_minimum_on_ties(tmp_path):
                             5, 5)
     for k in ref:
         assert torch.equal(emu[k], ref[k][sel]), k
+
+
+@pytest.fixture(scope="module")
+def ungapped_lib(tmp_path_factory):
+    return _emu_build(tmp_path_factory.mktemp("ungapped_emu"),
+                      ungapped_op._SRC, ("ungapped_extend",))
+
+
+def _kernel_threads() -> int:
+    """Threads per block of the kernel source (kThreads)."""
+    return int(re.search(r"constexpr int kThreads = (\d+);",
+                         ungapped_op._SRC.read_text()).group(1))
+
+
+def _emu_equals_plain(lib, part, d=5, dropout=5):
+    """The emulated kernel and the plain version on a part: every column
+    identical (integers, float32 energies bit for bit); returns the
+    arguments."""
+    args = uc.args_of(part, d, dropout)
+    plain = ungapped_op.ungapped_extend(*args)
+    cols, acc_e, hyb_e, (q_enc, q_acc, q_cond), (db_seq, db_acc,
+                                                 db_cond) = part
+    emu = ungapped_op._call(lib.ungapped_extend, cols, acc_e, hyb_e,
+                            (q_enc, db_seq, q_acc, q_cond, db_acc, db_cond),
+                            0, d, dropout)
+    assert set(emu) == set(plain)
+    for k in plain:
+        assert emu[k].dtype == plain[k].dtype, k
+        assert torch.equal(emu[k], plain[k]), k
+    return args
+
+
+@pytest.fixture(scope="module")
+def mixed_part(tiny_hits):
+    """The 96 tiny-golden stage-1 hits with the most steps, each among
+    three hits of a tie batch of 10-nt windows (fewer steps), over one set
+    of buffers."""
+    from priblast_tpu_torch.search import ungapped as ung
+
+    _soa, _energy, _acc, qbufs, dbufs, stage1 = tiny_hits
+    tiny = uc.stage1_part(stage1, qbufs, dbufs)
+    left, right = ung.extend_steps(*uc.args_of(tiny))
+    return uc.mixed_batch(tiny, left + right,
+                          uc.tie_batch(n_hits=512, length=10))
+
+
+def test_ungapped_kernel_source_on_a_mixed_batch(ungapped_lib, mixed_part):
+    """Long and short hits in every warp, so that lanes stop and switch
+    phase while their neighbours still run: the emulated kernel equals the
+    plain version bit for bit."""
+    from priblast_tpu_torch.search import ungapped as ung
+
+    args = _emu_equals_plain(ungapped_lib, mixed_part)
+    left, right = ung.extend_steps(*args)
+    steps = (left + right).view(-1, 4)
+    assert (steps[:, 0] > steps[:, 1:].max(dim=1).values).float().mean() > 0.5
+    assert len(args[0]) > _kernel_threads()
+
+
+@pytest.mark.parametrize("size", ["1", "31", "33", "block+17"])
+def test_ungapped_kernel_source_on_small_and_ragged_batches(
+        ungapped_lib, mixed_part, size):
+    """Batches of fewer hits than a warp, one more than a warp, and one
+    that ends 17 hits into a second block (a warp with idle lanes)."""
+    n = _kernel_threads() + 17 if size == "block+17" else int(size)
+    assert n <= len(mixed_part[1])
+    _emu_equals_plain(ungapped_lib, uc.select(mixed_part, torch.arange(n)))
+
+
+@pytest.mark.parametrize("dropout", [5, 3])
+def test_ungapped_kernel_source_clamps_at_both_buffer_ends(ungapped_lib,
+                                                          dropout):
+    """Hits whose steps read before the first and past the last entry of
+    every flat buffer: the clamped loads equal the plain version's."""
+    from priblast_tpu_torch.search import ungapped as ung
+
+    part = uc.clamp_batch()
+    args = _emu_equals_plain(ungapped_lib, part, dropout=dropout)
+    left, right = ung.extend_steps(*args)
+    (q_sp, db_sp, length, dbseq_start, qb, qab, dbb, aoff,
+     coff), _a, _h, (q_enc, q_acc, q_cond), (db_seq, db_acc, db_cond) = part
+    k0, l0, ids, d = q_sp + length - 1, db_sp + length - 1, dbseq_start, 5
+    # the first and the last load of each phase in each buffer
+    reach = {
+        "q_enc": (qb + q_sp, qb + q_sp - left - 1, qb + k0,
+                  qb + k0 + right + 1),
+        "db_seq": (dbb + db_sp, dbb + db_sp - left - 1, dbb + l0,
+                   dbb + l0 + right + 1),
+        "q_acc": (qab + q_sp, qab + q_sp - left - 1),
+        "q_cond": (qab + q_sp + d - 1, qab + q_sp + d - left - 1,
+                   qab + k0 + 1, qab + k0 + right + 1),
+        "db_acc": (aoff + ids, aoff + ids - right - 1),
+        "db_cond": (coff + ids + length, coff + ids + length + left,
+                    coff + ids + d - 1, coff + ids + d - right - 1),
+    }
+    sizes = dict(q_enc=len(q_enc), db_seq=len(db_seq), q_acc=len(q_acc),
+                 q_cond=len(q_cond), db_acc=len(db_acc), db_cond=len(db_cond))
+    for name, ends in reach.items():
+        pos = torch.cat(ends)
+        assert int(pos.min()) < 0 and int(pos.max()) >= sizes[name], name
+
+
+def test_ungapped_plain_version_never_reads_int21(tiny_hits, monkeypatch):
+    """Both coordinates move together in the ungapped extension (u1 = u2),
+    so the plain version never takes its int21 branches, which the kernel
+    leaves out: with int21 all NaN, its outputs are the same, on the
+    tiny-golden stage-1 hits and on the tie batch."""
+    from priblast_tpu_torch.search import ungapped as ung
+
+    _soa, _energy, _acc, qbufs, dbufs, stage1 = tiny_hits
+    batches = [uc.args_of(uc.stage1_part(stage1, qbufs, dbufs), 5, d)
+               for d in (5, 2)]
+    batches.append(uc.args_of(uc.tie_batch()))
+    refs = [ung.ungapped_extend_flat(*a) for a in batches]
+    tables = ung._tables
+
+    def nan_i21(device):
+        t = tables(device)
+        t["i21"] = torch.full_like(t["i21"], float("nan"))
+        return t
+
+    monkeypatch.setattr(ung, "_tables", nan_i21)
+    for a, ref in zip(batches, refs):
+        got = ung.ungapped_extend_flat(*a)
+        assert bool(torch.isnan(ung._tables("cpu")["i21"]).all())
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), k
+
+
+
+def test_lane_efficiency_of_one_thread_per_hit(mixed_part):
+    """chip_smoke.lanes_one_per_hit: the steps of all hits over 32 x the
+    sum, over warps of 32 consecutive hits, of the warp's largest step
+    count; a last warp with idle lanes counts its largest step count."""
+    import chip_smoke
+    from priblast_tpu_torch.search import ungapped as ung
+
+    st = torch.tensor([1] * 31 + [4, 2])
+    assert chip_smoke.lanes_one_per_hit(st) == 37 / (32 * (4 + 2))
+    assert chip_smoke.lanes_one_per_hit(torch.full((64,), 3)) == 1.0
+    left, right = ung.extend_steps(*uc.args_of(mixed_part))
+    steps = (left + right).tolist()
+    warps = [steps[k:k + 32] for k in range(0, len(steps), 32)]
+    want = sum(steps) / (32 * sum(max(w) for w in warps))
+    assert chip_smoke.lanes_one_per_hit(left + right) == pytest.approx(
+        want, rel=1e-12)
+    # long and short hits share every warp: sorted by steps, fewer lanes
+    # wait
+    assert chip_smoke.lanes_one_per_hit(
+        (left + right).sort().values) > want
