@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed 0]
 
 Phases (any failure ends the run with a non-zero exit code):
-  1. device: the card's name and power limit, torch and CUDA versions;
+  1. device: the card's name and power limit, torch and CUDA versions, the
+     host's core count (os.cpu_count() and the affinity mask);
   2. build: the native host library (g++) and the four CUDA kernel
      sources (nvcc, sm_90a: the gapped extension, the ungapped extension,
      the accessibility inside scan and outside scan), all from this
@@ -12,8 +13,9 @@ Phases (any failure ends the run with a non-zero exit code):
   3. main path at full size: a seeded workload the size of bench.py's
      (100 queries of ~1,000 nt against 20 db sequences of ~5,000 nt,
      first-order Markov sequences of transcript-like composition) through
-     `db --engine gpu` and `ris --engine gpu` on cuda, whose search is the
-     fused path (host seed DFS, device expansion, the ungapped kernel,
+     `db --engine gpu` and `ris --engine gpu` on cuda, with the router
+     pinned to the device chain (PRIBLAST_DEVICE_EXTEND=1), whose search is
+     the fused path (host seed DFS, device expansion, the ungapped kernel,
      threshold, host mid, the gapped kernel, host finish) and whose
      accessibility runs the two scan kernels; the four kernels'
      launch counts, the stage seconds (`ris.fused` split into its
@@ -31,6 +33,25 @@ Phases (any failure ends the run with a non-zero exit code):
      (seed_stage -> ungapped_stage -> threshold_stage) against the fused
      stage on the first 20 queries, same packs and accessibilities:
      identical post-threshold streams;
+  4f. router: the five rates of the ris router (models/ris_gpu.py) from
+     the main path and the host chain on this host: pairs per host thread
+     and second, device pairs per second of seed + fused, hits after the
+     mid stage per pair, device hits per second of mid + gapped + finish,
+     and the device chain's wall on a one-query wave;
+  4g. host-extend: `ris` with PRIBLAST_DEVICE_EXTEND=0 (device
+     accessibility, then the host chain): its body equals phase 4a's host
+     chain byte for byte, and no extension kernel runs;
+  4h. hybrid: `ris` with the router in auto and its hybrid split on
+     (forced with PRIBLAST_HYBRID=1 on a host of fewer than 4 threads):
+     per wave, each side's queries, pairs and wall, the rates before and
+     after calibration, q/s; the split equals split_wave recomputed from
+     the printed pairs and rates, the extension kernels ran if and only if
+     the device side had queries, and the body agrees with the main
+     path's as the device chain agrees with the host chain;
+  4i. multiproc: two processes of `python -m priblast_tpu_torch` on this
+     card (torch.distributed, gloo): `db --engine gpu -a block`, then
+     `ris --engine gpu -a area` on the device chain; the db files and the
+     ris body byte for byte against the main path's;
   5. the gapped kernel (one direction, from the characters to the
      traceback) against its plain PyTorch version on the card: on the
      inputs of the main path's first launch (its own batch shape, whose
@@ -85,6 +106,18 @@ PLANE_RTOL = 1e-4
 # address arithmetic, the break tests, 5 float adds, the pair type, the
 # dropout test); a paired step adds its loop energy
 UNGAPPED_OPS_PER_STEP = 40
+# the port's CLI in a process of its own ([multiproc]), then one JSON line
+# of the launch counts of its four kernels over that run
+COUNTING_CLI = """
+import json, sys
+from priblast_tpu_torch import cli
+from priblast_tpu_torch.ops import access_scan, gapped_sweep, ungapped_extend
+cli.main(sys.argv[1:])
+print(json.dumps({"access_inside": access_scan.inside_launches,
+                  "access_outside": access_scan.outside_launches,
+                  "ungapped_extend": ungapped_extend.launches,
+                  "gapped_extend": gapped_sweep.launches}))
+"""
 
 
 def fail(msg: str) -> None:
@@ -163,6 +196,14 @@ def compare_lines(ref: list[str], got: list[str]):
 
 def body(path: Path) -> list[str]:
     return path.read_text().splitlines()[3:]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def usage() -> tuple:
@@ -506,9 +547,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
+    cores, affinity = os.cpu_count(), len(os.sched_getaffinity(0))
     print(f"[device] {card} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}",
-          flush=True)
+          f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()} | "
+          f"host cores {cores} (affinity {affinity})", flush=True)
     dev = torch.device("cuda")
 
     # ---- 2. build, both toolchains started together -------------------------
@@ -595,6 +637,9 @@ def main() -> int:
     pipeline.mid_stage = mid_rec
 
     db_gpu, out_gpu = work / "db_gpu", work / "ris_gpu.txt"
+    # the main path is the device chain: the router's default, auto, may
+    # send queries to the host chain
+    os.environ["PRIBLAST_DEVICE_EXTEND"] = "1"
     prof.reset()
     torch.cuda.reset_peak_memory_stats()
     gapped_sweep.launches = uop.launches = 0
@@ -620,7 +665,7 @@ def main() -> int:
     fused.fused_stage = fstage0
     pipeline.mid_stage = mid0
 
-    check(acc_devices == {"cuda"}, f"accessibility ran on {acc_devices}")
+    check(acc_devices == {"cuda:0"}, f"accessibility ran on {acc_devices}")
     check("ris.fused.ungapped" in stages,
           f"the main path did not run the fused stage: {sorted(stages)}")
     check(launches > 0, "the gapped kernel was never launched")
@@ -671,15 +716,17 @@ def main() -> int:
                                            q_length)
         return lines
 
+    threads = min(32, os.cpu_count() or 1)     # ris's default
     t0 = time.perf_counter()
-    with cf.ThreadPoolExecutor() as ex:
+    with cf.ThreadPoolExecutor(threads) as ex:
         per_q = dict(zip(order, ex.map(host_chain, order)))
     host_lines = [f"0,{line}" for i in order for line in per_q[i]]
     t_host = time.perf_counter() - t0
     frac, matched, de = compare_lines(host_lines, gpu_lines)
     print(f"[chain] device chain vs host chain on the same accessibilities: "
           f"{matched}/{len(host_lines)} lines agree ({frac:.6f}), max energy "
-          f"diff {de:.3g} kcal/mol (host chain {t_host:.2f}s)", flush=True)
+          f"diff {de:.3g} kcal/mol (host chain {t_host:.2f}s on {threads} "
+          "threads)", flush=True)
     check(frac >= 0.999, f"device/host chain agreement {frac} < 0.999")
     check(de <= 1e-3, f"device/host chain energy diff {de} > 1e-3")
 
@@ -743,6 +790,7 @@ def main() -> int:
     check(per_pair <= fused.PAIR_BYTES,
           f"a pair block takes {per_pair:.1f} B per pair, more than "
           f"fused.PAIR_BYTES = {fused.PAIR_BYTES}")
+    n_pairs = wb.tot
     del wb
     first_fused.clear()
 
@@ -754,7 +802,6 @@ def main() -> int:
     dp = pipeline.DbPack(chunks, device=dev)
     qp = pipeline.QueryPack(*([q[k] for q in queries] for k in (0, 2, 3, 1)),
                             device=dev)
-    threads = os.cpu_count() or 1
     t0 = time.perf_counter()
     s_st = pipeline.seed_stage(p, chunks, queries, threads)
     pipeline._hit_bases(s_st, qp, dp)
@@ -776,6 +823,203 @@ def main() -> int:
           f"stage give identical post-threshold streams ({len(s_fu)} hits, "
           f"{len(s_fu.groups)} groups, all fields); staged {t_st:.3f}s, "
           f"seed DFS + fused stage {t_fu:.3f}s {tag}", flush=True)
+
+    # ---- 4f. the router's rates, from the main path (device chain) and
+    # the host chain of phase 4a, on this host
+    post_mid = sum(len(ms["q_sp"]) for ms in mid_streams)
+    q1 = order[-1]                      # the shortest query: a small wave
+    q_enc = alphabet.encode_query(seqs[q1], p.repeat_flag)
+    one = [(q_enc, native.sa_build(q_enc), *q_access[q1])]
+    qp1 = pipeline.QueryPack(*([q[k] for q in one] for k in (0, 2, 3, 1)),
+                             device=dev)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.search_all(p, chunks, one, qp1, dp, device=dev,
+                            threads=threads)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    rates = {
+        "HOST_PAIR_RATE": n_pairs / (t_host * threads),
+        "DEV_PAIR_RATE": n_pairs / (stages["ris.seed"] + stages["ris.fused"]),
+        "HIT_DENSITY": post_mid / n_pairs,
+        "DEV_HIT_RATE": post_mid / (stages["ris.mid"] + stages["ris.gapped"]
+                                    + stages["ris.finish"]),
+        "DEV_DISPATCH_S": sorted(walls)[1],
+    }
+    print(f"[router] rates measured on this host: {json.dumps(rates)} "
+          f"(router constants: " + json.dumps(
+              {k: getattr(ris_gpu, k) for k in rates}) + f"); {n_pairs} "
+          f"candidate pairs, {post_mid} hits after the mid stage, host chain "
+          f"{t_host:.3f} s on {threads} threads, one-query device waves "
+          + ", ".join(f"{w:.4f}" for w in walls) + f" s; host cores {cores} "
+          f"(affinity {affinity}) {tag}", flush=True)
+
+    # ---- 4g. ris with the host chain on device accessibilities
+    def run_ris(mode: str, out: Path) -> float:
+        """`ris` in router mode `mode`, with every launch count set to 0
+        just before it (read just after by the caller)."""
+        os.environ["PRIBLAST_DEVICE_EXTEND"] = mode
+        gapped_sweep.launches = uop.launches = 0
+        acs.inside_launches = acs.outside_launches = 0
+        t0 = time.perf_counter()
+        cli.main(["ris", "-i", str(work / "q.fa"), "-o", str(out), "-d",
+                  str(db_gpu)])
+        return time.perf_counter() - t0
+
+    def scans_ran(phase: str) -> None:
+        n_ris = len(access_batches) - n_db_batches
+        check(acs.inside_launches == acs.outside_launches == n_ris,
+              f"{phase}: the scan kernels launched {acs.inside_launches} / "
+              f"{acs.outside_launches} times for {n_ris} ris batches")
+
+    out_host = work / "ris_host.txt"
+    t_he = run_ris("0", out_host)
+    want = [f"{i},{line}" for i, line in
+            enumerate(line for idx in order for line in per_q[idx])]
+    got = body(out_host)
+    n_diff = sum(a != b for a, b in zip(want, got)) + abs(len(want)
+                                                          - len(got))
+    print(f"[host-extend] ris with PRIBLAST_DEVICE_EXTEND=0: {N_Q} queries in "
+          f"{t_he:.3f}s = {N_Q / t_he:.4f} q/s; {len(got)} lines, {n_diff} "
+          f"differ from the host chain of phase 4a; extension kernel "
+          f"launches: ungapped {uop.launches}, gapped {gapped_sweep.launches} "
+          f"{tag}", flush=True)
+    check(n_diff == 0, f"host-extend body differs from the host chain on "
+          f"{n_diff} lines")
+    check(uop.launches == 0 and gapped_sweep.launches == 0,
+          "an extension kernel ran with PRIBLAST_DEVICE_EXTEND=0")
+    scans_ran("host-extend")
+
+    # ---- 4h. ris with the hybrid split
+    forced = min(32, cores or 1) < 4
+    if forced:
+        os.environ["PRIBLAST_HYBRID"] = "1"
+    splits = []
+    split0, cal0 = ris_gpu.split_wave, ris_gpu._calibrate
+
+    def split_rec(pairs_by_q, threads_, n_dev):
+        hd = split0(pairs_by_q, threads_, n_dev)
+        splits.append(dict(pairs=dict(pairs_by_q), threads=threads_,
+                           n_dev=n_dev, hr=ris_gpu._host_rate(threads_),
+                           dr=ris_gpu._dev_rate(n_dev), split=hd))
+        return hd
+
+    def cal_rec(side, n, wall):
+        # each side of a wave calibrates once, the device side on its own
+        # thread; after the later of the two, "cal" holds both
+        cal0(side, n, wall)
+        splits[-1].setdefault("wall", {})[side] = wall
+        splits[-1]["cal"] = dict(ris_gpu._CAL)
+
+    ris_gpu._CAL.update(host=None, dev=None)
+    ris_gpu.split_wave, ris_gpu._calibrate = split_rec, cal_rec
+    out_hyb = work / "ris_hybrid.txt"
+    try:
+        t_hy = run_ris("auto", out_hyb)
+    finally:
+        ris_gpu.split_wave, ris_gpu._calibrate = split0, cal0
+        os.environ.pop("PRIBLAST_HYBRID", None)
+    check(len(splits) >= 1, "the hybrid split never ran")
+    any_dev = False
+    for wi, sp in enumerate(splits):
+        host_q, dev_q = sp["split"]
+        any_dev |= bool(dev_q)
+        walls_w = sp.get("wall", {})
+        print(f"[hybrid] wave {wi}: host {len(host_q)} queries "
+              f"{sum(sp['pairs'][q] for q in host_q)} pairs wall "
+              f"{walls_w.get('host')} s; device {len(dev_q)} queries "
+              f"{sum(sp['pairs'][q] for q in dev_q)} pairs wall "
+              f"{walls_w.get('dev')} s; rates at the split host "
+              f"{sp['hr']:.1f} device {sp['dr']:.1f} pairs/s (dispatch "
+              f"{ris_gpu.DEV_DISPATCH_S} s, {sp['threads']} threads); "
+              f"calibrated {json.dumps(sp.get('cal'))} {tag}", flush=True)
+        saved = dict(ris_gpu._CAL)
+        ris_gpu._CAL.update(host=sp["hr"], dev=sp["dr"])
+        again = ris_gpu.split_wave(sp["pairs"], sp["threads"], sp["n_dev"])
+        ris_gpu._CAL.update(saved)
+        check(again == sp["split"], f"wave {wi}: the split differs from "
+              "split_wave on the printed pairs and rates")
+    check((uop.launches > 0) == any_dev and (gapped_sweep.launches > 0)
+          == any_dev, f"extension kernels launched (ungapped {uop.launches}, "
+          f"gapped {gapped_sweep.launches}) but the device side had "
+          f"{'some' if any_dev else 'no'} queries")
+    scans_ran("hybrid")
+    frac, matched, de = compare_lines(gpu_lines, body(out_hyb))
+    print(f"[hybrid] ris {N_Q} queries in {t_hy:.3f}s = {N_Q / t_hy:.4f} q/s "
+          f"({'PRIBLAST_HYBRID=1: fewer than 4 threads' if forced else 'auto'}"
+          f"); kernel launches ungapped {uop.launches}, gapped "
+          f"{gapped_sweep.launches}; against the main path {matched}/"
+          f"{len(gpu_lines)} lines agree ({frac:.6f}), max energy diff "
+          f"{de:.3g} kcal/mol {tag}", flush=True)
+    check(frac >= 0.999, f"hybrid/main agreement {frac} < 0.999")
+    check(de <= 1e-3, f"hybrid/main energy diff {de} > 1e-3")
+    os.environ["PRIBLAST_DEVICE_EXTEND"] = "1"
+
+    # ---- 4i. two processes on this card
+    mp = work / "mp"
+    mp.mkdir(exist_ok=True)
+
+    def two_procs(args, **env_extra):
+        """`args` in two processes of the port's CLI, each of which prints
+        its kernels' launch counts (from 0 at its start) after the run.
+        Returns (wall s, [counts of process 0, of process 1])."""
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", COUNTING_CLI, *args],
+            env=dict(os.environ, PRIBLAST_NUM_PROCS="2",
+                     PRIBLAST_PROC_ID=str(i),
+                     PRIBLAST_COORD=f"localhost:{port}",
+                     PRIBLAST_DIST_TIMEOUT="600", **env_extra),
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for i in range(2)]
+        t0 = time.perf_counter()
+        counts = []
+        try:
+            for i, proc in enumerate(procs):
+                out, err = proc.communicate(timeout=600)
+                check(proc.returncode == 0, f"process {i} of `{args[0]}` "
+                      f"exited {proc.returncode}: {err[-2000:]}")
+                counts.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return time.perf_counter() - t0, counts
+
+    t_mdb, c_db = two_procs(["db", "-i", str(work / "db.fa"), "-o",
+                       str(mp / "db_gpu"), "-a", "block", "-p", str(mp)])
+    t_mris, c_ris = two_procs(["ris", "-i", str(work / "q.fa"), "-o",
+                        str(mp / "ris_gpu.txt"), "-d", str(db_gpu), "-a",
+                        "area", "-p", str(mp)], PRIBLAST_DEVICE_EXTEND="1")
+    diffs = {}
+    for ext in ("bas", "seq", "ind", "nam", "acc"):
+        a = np.frombuffer(Path(f"{db_gpu}.{ext}").read_bytes(), np.uint8)
+        b = np.frombuffer((mp / f"db_gpu.{ext}").read_bytes(), np.uint8)
+        diffs[ext] = (int((a != b).sum()) if len(a) == len(b)
+                      else f"sizes {len(a)} and {len(b)}")
+    main_body = out_gpu.read_text().splitlines()[2:]
+    mp_body = (mp / "ris_gpu.txt").read_text().splitlines()[2:]
+    n_diff = sum(a != b for a, b in zip(main_body, mp_body)) + abs(
+        len(main_body) - len(mp_body))
+    print(f"[multiproc] two processes on {card}: db {t_mdb:.3f}s, ris "
+          f"{t_mris:.3f}s (walls with process start); bytes that differ from "
+          f"the main path's db files {json.dumps(diffs)}; ris body "
+          f"{len(mp_body)} lines, {n_diff} differ", flush=True)
+    print(f"[multiproc] kernel launches per process: db {json.dumps(c_db)}; "
+          f"ris {json.dumps(c_ris)}", flush=True)
+    for step, counts, names in (
+            ("db", c_db, ("access_inside", "access_outside")),
+            ("ris", c_ris, ("access_inside", "access_outside",
+                            "ungapped_extend", "gapped_extend"))):
+        for i, c in enumerate(counts):
+            check(all(c[k] > 0 for k in names), f"two-process {step}: "
+                  f"process {i} launched no {[k for k in names if not c[k]]}")
+    check(all(v == 0 for v in diffs.values()),
+          f"two-process db files differ from one process's: {diffs}")
+    check(n_diff == 0, f"two-process ris body differs on {n_diff} lines")
 
     # ---- 5. the gapped kernel vs its plain version, on the card ---------
     def hold(label, a, k):

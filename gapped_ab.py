@@ -23,6 +23,7 @@ import argparse
 import concurrent.futures as cf
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -119,6 +120,9 @@ def main() -> int:
             return entry(*a, **k)
 
         sop.gapped_extend_dir = rec
+        # the device chain (the ris router's default, auto, may send queries
+        # to the host chain)
+        os.environ["PRIBLAST_DEVICE_EXTEND"] = "1"
         try:
             cli.main(["db", "-i", str(work / "db.fa"), "-o",
                       str(work / "db")])

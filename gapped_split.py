@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -132,6 +133,9 @@ def main() -> int:
                                         sync=False)
     pipeline.gapped_stage = timed("gapped_stage", saved["gst"])
     prof.reset()
+    # the device chain (the ris router's default, auto, may send queries
+    # to the host chain)
+    os.environ["PRIBLAST_DEVICE_EXTEND"] = "1"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cli.main(["ris", "-i", str(work / "q.fa"), "-o", str(work / "ris.txt"),

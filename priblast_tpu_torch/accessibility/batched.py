@@ -770,12 +770,21 @@ def probability_pass(t: Tables, g: Grids, pg: ProbGrids, ins, outs,
     # Cell (i, j) lives at [jc = j-1][ecell = j-i-1] and covers windows
     # x in [i+1, j-w]. With offset o = j - x:
     #   total[x] = sum_o SS[x+o-1][o],  SS[c][k] = sum_{e >= k} HP[c][e]
+    # The suffix sums are added one span at a time, in float64, and each
+    # rounded to the dtype: the order and precision of the CPU's cumsum,
+    # the same for every batch. torch.cumsum on the card rounds otherwise
+    # at another batch shape, so a sequence's accessibility would depend
+    # on its batch-mates and padding (access_batch_ab.py).
     HP = bse * g.hpW
-    SS = torch.cumsum(HP.flip(2), 2).flip(2)  # suffix over span
+    SS = {}
+    run_ss = torch.zeros_like(HP[:, :, 0], dtype=torch.float64)
+    for e in range(band - 1, w - 1, -1):
+        run_ss = run_ss + HP[:, :, e].double()
+        SS[e] = run_ss.to(dtype)
     hp_b = xarr()
     hp_c = xarr()
     for o in range(w, band - 1):
-        term = padx(_shift_cols(SS[:, :, o], -(o - 1)))
+        term = padx(_shift_cols(SS[o], -(o - 1)))
         hp_b = hp_b + term
         if o > w:
             hp_c = hp_c + term

@@ -6,6 +6,9 @@ src/rna_interaction_search_parameters.cpp:33-95) plus `--engine` to select
 the device engine (`gpu`, the default) or the exact host engine, and
 `--device` to name the torch device the `gpu` engine runs on (`cuda`, the
 default; `cpu` runs the same code with the kernels' plain versions).
+Several processes (PRIBLAST_NUM_PROCS, PRIBLAST_PROC_ID, PRIBLAST_COORD;
+parallel/multihost.py) split the sequences by `-a` and merge through part
+files under `-p`.
 """
 
 from __future__ import annotations
@@ -38,11 +41,13 @@ def _db_parser(sub) -> None:
                    help="db page size (sequences per page)")
     q.add_argument("-a", dest="algorithm", default="heap",
                    choices=["block", "heap", "dynamic"],
-                   help="multi-process distribution strategy (this port "
-                        "runs one process and schedules dynamically)")
+                   help="multi-process sequence distribution strategy: "
+                        "block = contiguous blocks, heap and dynamic = "
+                        "longest-first over the processes' loads "
+                        "(single-process runs schedule dynamically)")
     q.add_argument("-p", dest="tmp_path", default="",
-                   help="directory for multi-process part files (unused "
-                        "by a single process)")
+                   help="directory for multi-process part files (default: "
+                        "beside the output)")
     _engine_flags(q)
 
 
@@ -63,11 +68,14 @@ def _ris_parser(sub) -> None:
     q.add_argument("-s", dest="output_style", type=int, default=0)
     q.add_argument("-a", dest="algorithm", default="area",
                    choices=["block", "area", "dynamic"],
-                   help="multi-process distribution strategy (this port "
-                        "runs one process and schedules dynamically)")
+                   help="multi-process query distribution strategy: "
+                        "block = contiguous blocks, area = longest-first "
+                        "fill to the mean length per process, dynamic = "
+                        "longest-first over the processes' loads "
+                        "(single-process runs schedule dynamically)")
     q.add_argument("-p", dest="tmp_path", default="",
-                   help="directory for multi-process part files (unused "
-                        "by a single process)")
+                   help="directory for multi-process part files (default: "
+                        "beside the output)")
     q.add_argument("--dtype", dest="dtype", default="float32",
                    choices=["float32", "float64"],
                    help="device-engine dtype: float64 gives ~1e-9 kcal/mol "

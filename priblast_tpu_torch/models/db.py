@@ -53,21 +53,57 @@ def compute_accessibilities_exact(seqs: list[str], w: int, d: int,
 
 
 def run(p: DbParams, threads: int | None = None) -> None:
+    from priblast_tpu_torch.parallel import multihost
+
     p.validate()
-    device = (resolve_device(p.engine, p.device) if p.engine == "gpu"
+    pidx, pcount = multihost.init_from_env()
+    try:
+        _run(p, threads, pidx, pcount)
+    finally:
+        multihost.shutdown()
+
+
+def _run(p: DbParams, threads: int | None, pidx: int, pcount: int) -> None:
+    from priblast_tpu_torch.parallel import multihost
+
+    device = (resolve_device(p.engine, p.device, pidx) if p.engine == "gpu"
               else None)
     names, seqs = fasta.read_fasta(p.input)
+    if pcount > 1:
+        mine = sorted(multihost.partition_for(
+            p.algorithm, [len(s) for s in seqs], pcount)[pidx])
+        my_seqs = [seqs[i] for i in mine]
+    else:
+        mine, my_seqs = list(range(len(seqs))), seqs
 
     with prof.stage("db.accessibility", device):
         if device is not None:
             from priblast_tpu_torch.models import db_gpu
 
             accs, conds = db_gpu.compute_accessibilities(
-                seqs, p.maximal_span, p.min_accessible_length,
+                my_seqs, p.maximal_span, p.min_accessible_length,
                 device=device)
         else:
             accs, conds = compute_accessibilities_exact(
-                seqs, p.maximal_span, p.min_accessible_length, threads)
+                my_seqs, p.maximal_span, p.min_accessible_length, threads)
+
+    if pcount > 1:
+        # gather the accessibility shards to process 0, which builds the
+        # index (the analog of the reference's gather to one rank before
+        # the index build, src/db_construction.cpp:239-328)
+        multihost.write_acc_part(
+            multihost.part_path(p.db_name, p.tmp_path, pidx),
+            {i: accs[k] for k, i in enumerate(mine)},
+            {i: conds[k] for k, i in enumerate(mine)})
+        multihost.barrier("db_acc_parts")
+        if pidx != 0:
+            prof.maybe_report()
+            return
+        parts = [multihost.part_path(p.db_name, p.tmp_path, q)
+                 for q in range(pcount)]
+        accs, conds = multihost.read_acc_parts(parts, len(seqs))
+        for part in parts:
+            part.unlink()
 
     with prof.stage("db.index"):
         encoded_each = [alphabet.encode_db([s], p.repeat_flag) for s in seqs]

@@ -103,31 +103,68 @@ def search_query(p: RisParams, chunks: list[store.DbChunk], name: str,
 
 
 def run(p: RisParams, threads: int | None = None) -> None:
-    device = (resolve_device(p.engine, p.device) if p.engine == "gpu"
+    from priblast_tpu_torch.parallel import multihost
+
+    pidx, pcount = multihost.init_from_env()
+    try:
+        _run(p, threads, pidx, pcount)
+    finally:
+        multihost.shutdown()
+
+
+def _run(p: RisParams, threads: int | None, pidx: int, pcount: int) -> None:
+    from priblast_tpu_torch.parallel import multihost
+
+    device = (resolve_device(p.engine, p.device, pidx) if p.engine == "gpu"
               else None)
     p.load_db_params()
     names, seqs = fasta.read_fasta(p.input)
     chunks = store.load_chunks(p.db_name, p.hash_size)
     order = [int(i) for i in native.argsort_desc([len(s) for s in seqs])]
+    if pcount > 1:
+        # this process's query shard by the -a distribution strategy
+        # (reference: src/fastafile_reader.cpp:135-314)
+        mine = set(multihost.partition_for(
+            p.algorithm, [len(s) for s in seqs], pcount)[pidx])
+        my_order = [i for i in order if i in mine]
+    else:
+        my_order = order
     threads = threads or min(32, os.cpu_count() or 1)
     results: list[list[str] | None] = [None] * len(seqs)
 
     if device is not None:
         from priblast_tpu_torch.models import ris_gpu
 
-        ris_gpu.run_queries(p, chunks, names, seqs, order, results,
+        ris_gpu.run_queries(p, chunks, names, seqs, my_order, results,
                             device=device, threads=threads)
-    elif threads > 1 and len(order) > 1:
+    elif threads > 1 and len(my_order) > 1:
         with cf.ThreadPoolExecutor(threads) as ex:
             futs = {ex.submit(search_query, p, chunks, names[i], seqs[i]): i
-                    for i in order}
+                    for i in my_order}
             for f in cf.as_completed(futs):
                 results[futs[f]] = f.result()
     else:
-        for i in order:
+        for i in my_order:
             results[i] = search_query(p, chunks, names[i], seqs[i])
 
     prof.maybe_report()
+    if pcount > 1:
+        # part file + barrier + ordered merge on process 0 (replaces the
+        # reference's completion-order ring,
+        # src/rna_interaction_search.cpp:202-230)
+        multihost.write_ris_part(
+            multihost.part_path(p.output, p.tmp_path, pidx),
+            {i: results[i] or [] for i in my_order})
+        multihost.barrier("ris_parts")
+        if pidx != 0:
+            return
+        parts = [multihost.part_path(p.output, p.tmp_path, q)
+                 for q in range(pcount)]
+        merged = multihost.read_ris_parts(parts)
+        results = [merged.get(i) for i in range(len(seqs))]
+        for part in parts:
+            part.unlink()
+
     with open(p.output, "w") as f:
         f.write(header(p))
         count = 0

@@ -422,16 +422,19 @@ def finish_stage(stream: HitStream, bps: dict, queries, chunks, p,
 
 def search_all(p, chunks, queries, qpack: QueryPack, dbpack: DbPack, *,
                device, threads: int = 1, max_ext: int = 32,
-               dtype: str = "float32"):
+               dtype: str = "float32", cands=None):
     """The search chain over every (query, chunk) pair: host seed DFS, then
     expansion, ungapped extension and threshold on the device
     (search/fused.py), then finish_search. Returns (stream, results) where
     results is the per-group finished SoA list aligned with stream.groups.
-    queries: list of (q_enc, q_sa, q_acc, q_cond)."""
+    queries: list of (q_enc, q_sa, q_acc, q_cond). `cands`: the seed
+    candidates, where the caller has already seeded (the ris router); then
+    only their groups are searched, and the seed DFS does not run again."""
     from priblast_tpu_torch.search import fused, seed
 
-    with prof.stage("ris.seed"):
-        cands = seed.seed_candidates(p, chunks, queries, threads)
+    if cands is None:
+        with prof.stage("ris.seed"):
+            cands = seed.seed_candidates(p, chunks, queries, threads)
     with prof.stage("ris.fused", device):
         stream = fused.fused_stage(p, cands, qpack, dbpack, device=device)
     return finish_search(stream, p, chunks, queries, qpack, dbpack,

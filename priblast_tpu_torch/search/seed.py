@@ -5,6 +5,8 @@ hits on the device by search/fused.py."""
 
 from __future__ import annotations
 
+import numpy as np
+
 from priblast_tpu_torch.ops import native
 from priblast_tpu_torch.search.pipeline import _map_groups
 
@@ -26,3 +28,11 @@ def seed_candidates(p, chunks, queries, threads: int = 1):
                                    p, stage=4)
 
     return list(zip(pairs, _map_groups(one, pairs, threads)))
+
+
+def n_pairs(c) -> int:
+    """Candidate (query, db) position pairs of one group's seed candidates:
+    the products of their two suffix-array interval sizes, which the fused
+    stage expands one by one."""
+    nq = (c["db_sp"] - c["q_sp"] + 1).astype(np.int64)
+    return int((nq * (c["db_len"] - c["q_len"] + 1)).sum())

@@ -78,19 +78,23 @@ class RisParams:
         self.maximal_span, self.min_accessible_length = w, d
 
 
-def resolve_device(engine: str, device: str):
+def resolve_device(engine: str, device: str, pidx: int = 0):
     """The torch device the ``gpu`` engine runs on. Asking for ``cuda``
     on a machine without a card is an error, never a silent switch to the
-    exact engine or to the CPU."""
+    exact engine or to the CPU. With several processes on one host, process
+    ``pidx`` takes card ``pidx`` modulo the cards there: one process per
+    card, and processes share the cards when there are more of them."""
     import torch
 
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if device not in DEVICES:
         raise ValueError(f"unknown device {device!r}")
-    if device == "cuda" and not torch.cuda.is_available():
+    if device == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
         raise RuntimeError(
             "--engine gpu needs a CUDA device and none is available; "
             "pass --device cpu to run the device engine on the CPU, or "
             "--engine exact for the host engine")
-    return torch.device(device)
+    return torch.device("cuda", pidx % torch.cuda.device_count())

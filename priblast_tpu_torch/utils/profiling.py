@@ -6,17 +6,24 @@ synchronises before reading the clock on each side, so the time covers
 the device work the stage queued and not only its launches.
 ``device_trace(name)`` wraps a block in a ``torch.profiler`` trace
 (exported as a Chrome trace) when PRIBLAST_TRACE_DIR is set.
+
+Stages may run on several threads at once (the ris router's hybrid split
+runs the host and device chains side by side): the sums are kept under a
+lock, and then the stage seconds of the two sides overlap, so they do not
+add up to the wall time.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
 
 _times: dict[str, float] = defaultdict(float)
 _counts: dict[str, int] = defaultdict(int)
+_lock = threading.Lock()
 
 
 def enabled() -> bool:
@@ -38,8 +45,10 @@ def stage(name: str, device=None):
         yield
     finally:
         _sync(device)
-        _times[name] += time.perf_counter() - t0
-        _counts[name] += 1
+        dt = time.perf_counter() - t0
+        with _lock:
+            _times[name] += dt
+            _counts[name] += 1
 
 
 @contextlib.contextmanager
@@ -61,18 +70,27 @@ def device_trace(name: str):
 
 
 def snapshot() -> dict[str, float]:
-    return dict(_times)
+    with _lock:
+        return dict(_times)
+
+
+def counts() -> dict[str, int]:
+    with _lock:
+        return dict(_counts)
 
 
 def reset() -> None:
-    _times.clear()
-    _counts.clear()
+    with _lock:
+        _times.clear()
+        _counts.clear()
 
 
 def report() -> str:
     lines = ["stage timings:"]
-    for name, total in sorted(_times.items(), key=lambda kv: -kv[1]):
-        lines.append(f"  {name:32s} {total:9.3f}s  x{_counts[name]}")
+    with _lock:
+        rows = sorted(_times.items(), key=lambda kv: -kv[1])
+        for name, total in rows:
+            lines.append(f"  {name:32s} {total:9.3f}s  x{_counts[name]}")
     return "\n".join(lines)
 
 

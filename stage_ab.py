@@ -31,7 +31,9 @@ REPO = Path(__file__).resolve().parent
 
 def run(root: Path, step: str, args: list[str]) -> tuple[float, dict]:
     """One `step` in a fresh process from `root`: (wall s, stage s)."""
-    env = dict(os.environ, PRIBLAST_TIMINGS="1")
+    # ris on the device chain (the router's default, auto, may send
+    # queries to the host chain; a parent without the router ignores it)
+    env = dict(os.environ, PRIBLAST_TIMINGS="1", PRIBLAST_DEVICE_EXTEND="1")
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "priblast_tpu_torch", step,
                         *args], cwd=root, env=env, capture_output=True,

@@ -39,9 +39,14 @@ def _same_hits(ref: list[str], got: list[str]) -> None:
 
 
 def test_ris_gpu_engine_on_cpu_matches_goldens_and_jax(tmp_path, data_dir,
-                                                        golden_dir):
+                                                        golden_dir,
+                                                        monkeypatch):
     from priblast_tpu.models import ris as jris
     from priblast_tpu.utils.params import RisParams as JRisParams
+
+    # the device chain on both sides (the router's default, auto, sends
+    # this tiny wave to the host chain)
+    monkeypatch.setenv("PRIBLAST_DEVICE_EXTEND", "1")
 
     got = _ris(tmp_path, data_dir, golden_dir, "--device", "cpu")
     exact = (golden_dir / "tiny" / "predictions.txt").read_text() \

@@ -176,11 +176,12 @@ def test_ungapped_kernel_on_a_mixed_batch_on_the_card(tiny_mids):
 
 
 @pytest.mark.gpu
-def test_ris_gpu_engine_on_the_card(tmp_path):
-    """`ris --engine gpu` on the card: the golden hits and base pairs,
-    energies within the float32 engine's 2e-3, through the fused path's
-    ungapped kernel and the CUDA sweep."""
+def test_ris_gpu_engine_on_the_card(tmp_path, monkeypatch):
+    """`ris --engine gpu` on the card, pinned to the device chain: the
+    golden hits and base pairs, energies within the float32 engine's 2e-3,
+    through the fused path's ungapped kernel and the CUDA sweep."""
     _card()
+    monkeypatch.setenv("PRIBLAST_DEVICE_EXTEND", "1")
     out = tmp_path / "gpu.txt"
     before = sweep_op.launches, ungapped_op.launches
     cli.main(["ris", "-i", str(DATA / "tiny_q.fa"), "-o", str(out), "-d",
@@ -195,6 +196,35 @@ def test_ris_gpu_engine_on_the_card(tmp_path):
         assert fg[:5] == ft[:5] and fg[8:] == ft[8:]
         assert all(abs(float(a) - float(b)) < 2e-3
                    for a, b in zip(fg[5:8], ft[5:8]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_accessibility_does_not_depend_on_the_batch_on_the_card(dtype):
+    """Three sequences in a batch of 8 padded to 512 columns and in one of
+    16 padded to 768, with other batch-mates: the same acc and cond bytes.
+    Several processes batch their shards otherwise than one process, and
+    hold their outputs to its bytes (chip_smoke.py [multiproc])."""
+    dev = _card()
+    rng = np.random.default_rng(7)
+    lens = [int(x) for x in rng.integers(380, 500, 3)]
+    seqs = ["".join(rng.choice(list("ACGU"), n)) for n in lens]
+    engine = ab.BatchedRaccess(70, 5, dtype=dtype, device=dev)
+    got = []
+    for B, n_max in ((8, 512), (16, 768)):
+        others = ["".join(rng.choice(list("ACGU"), int(n)))
+                  for n in rng.integers(100, n_max + 1, B - 3)]
+        codes = np.zeros((B, n_max), np.uint8)
+        batch = others[: B // 2] + seqs + others[B // 2:]
+        for i, sq in enumerate(batch):
+            codes[i, : len(sq)] = alphabet.access_codes(sq)
+        acc, cond = engine.run(codes, np.array([len(x) for x in batch]))
+        rows = [batch.index(sq) for sq in seqs]
+        got.append([(acc[r, : n - 4], cond[r, :n])
+                    for r, n in zip(rows, lens)])
+    for (a1, c1), (a2, c2) in zip(*got):
+        assert a1.tobytes() == a2.tobytes()
+        assert c1.tobytes() == c2.tobytes()
 
 
 def _sweep_args(B=3, max_ext=8, dropout=4, dtype=torch.float32):

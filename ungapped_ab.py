@@ -36,6 +36,7 @@ import argparse
 import concurrent.futures as cf
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -142,6 +143,9 @@ def main() -> int:
 
     cli.main(["db", "-i", str(work / "db.fa"), "-o", str(work / "db")])
     uop.ungapped_extend = rec
+    # the device chain (the ris router's default, auto, may send queries
+    # to the host chain)
+    os.environ["PRIBLAST_DEVICE_EXTEND"] = "1"
     try:
         cli.main(["ris", "-i", str(work / "q.fa"), "-o",
                   str(work / "ris.txt"), "-d", str(work / "db")])
