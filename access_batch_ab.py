@@ -16,6 +16,16 @@ outside grids and the outside kernel's five planes, the eight terms of
 how many of the sequence's own values differ between its two batches
 (its columns 0..length, every band cell; `--seq` names another
 sequence). Ends with one JSON line.
+
+    python3 access_batch_ab.py --dryrun K [--device cuda]
+
+instead takes the random batch of parallel/dist.py:dryrun_multichip at K
+shards (2 K rows of 96 nt, window 48, d 5, seed 1), computes it whole and
+in its K shards of 2 rows, lists each row whose acc or cond differ, and
+splits the first such row stage by stage in the same way; then it holds
+each torch reduction and product that probability_pass runs over the band
+(a sum over the band axis, a band x band product) on the whole batch's
+inputs against the same op on one shard's rows.
 """
 
 from __future__ import annotations
@@ -38,6 +48,9 @@ def main() -> int:
     ap.add_argument("--seq", type=int, default=None,
                     help="the sequence to split by stage (default: the "
                          "first that differs)")
+    ap.add_argument("--dryrun", type=int, default=0, metavar="K",
+                    help="split dryrun_multichip's batch at K shards "
+                         "instead")
     args = ap.parse_args()
 
     import numpy as np
@@ -61,6 +74,8 @@ def main() -> int:
     else:
         card = "cpu"
     dev = torch.device(args.device)
+    if args.dryrun:
+        return dryrun_split(args.dryrun, dev, card)
     n_db = args.n_db or cs.N_DB
     db_len = args.db_len or cs.DB_LEN
     # chip_smoke.py's generator, in its order of draws: the db sequences
@@ -93,7 +108,7 @@ def main() -> int:
     for shard in multihost.partition_for("block", lengths, 2):
         plans["two"].update(batches_of(shard))
 
-    engine = ab.BatchedRaccess(w, d, device=dev)
+    engine = ab.BatchedRaccess(w, d, devices=dev)
     results = {}
     for name, plan in plans.items():
         done = {}
@@ -125,58 +140,130 @@ def main() -> int:
     if idx is not None:
         band, dt = w + 2, torch.float32
         L = lengths[idx]
-        got = {}
-        for name in ("one", "two"):
-            codes, lens, bi = plans[name][idx]
-            B, n_max = codes.shape
-            s_np = np.zeros((B, n_max + ab.ML + 4), np.int64)
-            s_np[:, 1: n_max + 1] = codes
-            s = torch.as_tensor(s_np, device=dev)
-            ln = torch.as_tensor(lens.astype(np.int64), device=dev)
-            out = {}
-            with torch.no_grad():
-                t = ab.make_tables(w, dt, dev)
-                g = ab.make_grids(t, s, ln, n_max, band, dt)
-                ins = acs.inside_scan(t, g, ln, n_max, band, dt)
-                og, m1 = ab.outside_inputs(t, s, ln, n_max, band, dt, g, ins)
-                outs = acs.outside_scan(t, og, m1, n_max, band, dt)
-                logZ = ins[6].gather(0, ln[None, :])[0]
-                pg = ab.make_prob_grids(t, s, n_max, band, dt)
-                terms = ab.probability_pass(t, g, pg, ins[:7], outs, ins[6],
-                                            ins[7], logZ, d, n_max, band, dt)
-                p_w, p_w1 = ab.scan_probabilities(t, g, s, ln, d, n_max,
-                                                  band, dt, ins, outs)
-                acc, cond = ab.accessibility_from_probabilities(
-                    p_w, p_w1, ln, d, n_max, engine.kT)
-            for k, x in g._asdict().items():
-                out[f"grid.{k}"] = x[: L + 1, bi]
-            for k, x in zip(("stem", "stem_m", "stem_a", "multi", "multi1",
-                             "multi2", "A", "B"), ins):
-                out[f"inside.{k}"] = x[: L + 1, bi]
-            for k, x in og._asdict().items():
-                out[f"ogrid.{k}"] = x[: L + 1, bi]
-            for k, x in zip(("bse", "bse_m", "bse_a", "b_multi", "b_multi2"),
-                            outs):
-                out[f"outside.{k}"] = x[: L + 1, bi]
-            for k, x in pg._asdict().items():
-                out[f"pgrid.{k}"] = x[: L + 1, bi]
-            for k, x in zip(("ext_w", "ext_w1", "hp_b", "hp_c", "bi_b",
-                             "bi_c", "mp_w", "mp_w1"), terms):
-                out[f"prob.{k}"] = x[: L + 2, bi]
-            out["p_w"], out["p_w1"] = p_w[: L + 2, bi], p_w1[: L + 2, bi]
-            out["acc"] = acc[bi, : L - d + 1]
-            out["cond"] = cond[bi, :L]
-            got[name] = {k: v.double().cpu() for k, v in out.items()}
-        for k in got["one"]:
-            a, b = got["one"][k], got["two"][k]
-            n = int((a != b).sum())
-            de = float((a - b).abs().max()) if n else 0.0
-            rel = float(((a - b).abs() / (a.abs() + 1e-300)).max()) if n \
-                else 0.0
-            stages[k] = dict(differ=n, of=a.numel(), max_abs=de, max_rel=rel)
-            print(f"[stage] seq {idx}: {k} {n} of {a.numel()} differ, max "
-                  f"|diff| {de:.3g}, max rel {rel:.3g} ({card})", flush=True)
+        got = {name: stage_values(*plans[name][idx], L, w, d, dev)
+               for name in ("one", "two")}
+        stages = compare_stages(got["one"], got["two"], f"seq {idx}", card)
     print(json.dumps({"card": card, "differ": differ, "stages": stages}))
+    return 0
+
+
+def stage_values(codes, lens, bi: int, L: int, w: int, d: int, dev) -> dict:
+    """Row bi (of length L) of every stage of the float32 accessibility
+    of the batch (codes, lens) on `dev`, as float64 CPU tensors."""
+    import numpy as np
+    import torch
+
+    from priblast_tpu_torch.accessibility import batched as ab
+    from priblast_tpu_torch.ops import access_scan as acs
+
+    band, dt = w + 2, torch.float32
+    B, n_max = codes.shape
+    s_np = np.zeros((B, n_max + ab.ML + 4), np.int64)
+    s_np[:, 1: n_max + 1] = codes
+    s = torch.as_tensor(s_np, device=dev)
+    ln = torch.as_tensor(lens.astype(np.int64), device=dev)
+    out = {}
+    with torch.no_grad():
+        t = ab.make_tables(w, dt, dev)
+        g = ab.make_grids(t, s, ln, n_max, band, dt)
+        ins = acs.inside_scan(t, g, ln, n_max, band, dt)
+        og, m1 = ab.outside_inputs(t, s, ln, n_max, band, dt, g, ins)
+        outs = acs.outside_scan(t, og, m1, n_max, band, dt)
+        logZ = ins[6].gather(0, ln[None, :])[0]
+        pg = ab.make_prob_grids(t, s, n_max, band, dt)
+        terms = ab.probability_pass(t, g, pg, ins[:7], outs, ins[6],
+                                    ins[7], logZ, d, n_max, band, dt)
+        p_w, p_w1 = ab.scan_probabilities(t, g, s, ln, d, n_max,
+                                          band, dt, ins, outs)
+        acc, cond = ab.accessibility_from_probabilities(
+            p_w, p_w1, ln, d, n_max, float(ab._linmodel(w).sp.kT))
+    for k, x in g._asdict().items():
+        out[f"grid.{k}"] = x[: L + 1, bi]
+    for k, x in zip(("stem", "stem_m", "stem_a", "multi", "multi1",
+                     "multi2", "A", "B"), ins):
+        out[f"inside.{k}"] = x[: L + 1, bi]
+    for k, x in og._asdict().items():
+        out[f"ogrid.{k}"] = x[: L + 1, bi]
+    for k, x in zip(("bse", "bse_m", "bse_a", "b_multi", "b_multi2"),
+                    outs):
+        out[f"outside.{k}"] = x[: L + 1, bi]
+    for k, x in pg._asdict().items():
+        out[f"pgrid.{k}"] = x[: L + 1, bi]
+    for k, x in zip(("ext_w", "ext_w1", "hp_b", "hp_c", "bi_b",
+                     "bi_c", "mp_w", "mp_w1"), terms):
+        out[f"prob.{k}"] = x[: L + 2, bi]
+    out["p_w"], out["p_w1"] = p_w[: L + 2, bi], p_w1[: L + 2, bi]
+    out["acc"] = acc[bi, : L - d + 1]
+    out["cond"] = cond[bi, :L]
+    return {k: v.double().cpu() for k, v in out.items()}
+
+
+def compare_stages(one: dict, two: dict, label: str, card: str) -> dict:
+    """Print and return, per stage, how many values differ."""
+    stages = {}
+    for k in one:
+        a, b = one[k], two[k]
+        n = int((a != b).sum())
+        de = float((a - b).abs().max()) if n else 0.0
+        rel = float(((a - b).abs() / (a.abs() + 1e-300)).max()) if n \
+            else 0.0
+        stages[k] = dict(differ=n, of=a.numel(), max_abs=de, max_rel=rel)
+        print(f"[stage] {label}: {k} {n} of {a.numel()} differ, max "
+              f"|diff| {de:.3g}, max rel {rel:.3g} ({card})", flush=True)
+    return stages
+
+
+def dryrun_split(k: int, dev, card: str) -> int:
+    """dryrun_multichip's batch at k shards: whole against its shards."""
+    import numpy as np
+    import torch
+
+    from priblast_tpu_torch.accessibility import batched as ab
+    from priblast_tpu_torch.parallel import dist
+
+    w, d, n_max, B = 48, 5, 96, 2 * k
+    rng = np.random.default_rng(1)
+    codes = rng.integers(1, 5, (B, n_max)).astype(np.uint8)
+    lens = np.full(B, n_max, dtype=np.int32)
+    whole = ab.BatchedRaccess(w, d, devices=dev).run(codes, lens)
+    rows = dist.split_rows(B, k)
+    differ = []
+    for lo, hi in rows:
+        part = ab.BatchedRaccess(w, d, devices=dev).run(codes[lo:hi],
+                                                        lens[lo:hi])
+        for r in range(lo, hi):
+            n = sum(int((x[r] != y[r - lo]).sum())
+                    for x, y in zip(whole, part))
+            print(f"[row] {r} (shard rows {lo}..{hi - 1}): {n} of "
+                  f"{2 * n_max} values differ ({card})", flush=True)
+            if n:
+                differ.append((r, lo, hi))
+    stages = {}
+    if differ:
+        r, lo, hi = differ[0]
+        stages = compare_stages(
+            stage_values(codes, lens, r, n_max, w, d, dev),
+            stage_values(codes[lo:hi], lens[lo:hi], r - lo, n_max, w, d,
+                         dev), f"row {r}", card)
+    # the band reductions and products of probability_pass, alone
+    band = w + 2
+    g = torch.Generator(device="cpu").manual_seed(2)
+    x = torch.rand((n_max + 2, B, band), generator=g).to(dev)
+    mat = torch.rand((band, band), generator=g).to(dev)
+    ops = {}
+    for name, fn in (("sum over the band", lambda v: v.sum(2)),
+                     ("band x band product", lambda v: v @ mat),
+                     ("sum over the columns", lambda v: v.sum(0))):
+        full = fn(x)
+        sub = fn(x[:, :2].contiguous())
+        # the batch axis is 1, or 0 once the columns are summed away
+        first = full[:2] if name == "sum over the columns" else full[:, :2]
+        n = int((first != sub).sum())
+        ops[name] = n
+        print(f"[op] {name}: {n} values of the first 2 rows differ between "
+              f"{B} rows and 2 ({card})", flush=True)
+    print(json.dumps({"card": card, "dryrun": k, "differ": differ,
+                      "stages": stages, "ops": ops}))
     return 0
 
 

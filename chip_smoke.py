@@ -5,7 +5,8 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. device: the card's name and power limit, torch and CUDA versions, the
-     host's core count (os.cpu_count() and the affinity mask);
+     host's core count (os.cpu_count() and the affinity mask), and the
+     devices `--device cuda` gives this process (every card);
   2. build: the native host library (g++) and the four CUDA kernel
      sources (nvcc, sm_90a: the gapped extension, the ungapped extension,
      the accessibility inside scan and outside scan), all from this
@@ -52,6 +53,18 @@ Phases (any failure ends the run with a non-zero exit code):
      card (torch.distributed, gloo): `db --engine gpu -a block`, then
      `ris --engine gpu -a area` on the device chain; the db files and the
      ris body byte for byte against the main path's;
+  4j. multidev: several devices in one process: `db` and `ris` (device
+     chain) of the main path's workload through their Python entry points
+     with `devices` = every card, or [cuda:0, cuda:0] on a machine of one
+     card (two shards on the card, each on its own thread); the db files
+     and the ris body byte for byte against the main path's, the four
+     kernels' launches equal to the plan (one per non-empty shard of every
+     accessibility batch and pair block, two per non-empty shard of every
+     gapped hit batch), the walls beside the main path's; then
+     parallel/dist.py:dryrun_multichip with [cuda:0] * 2 and [cuda:0] * 4
+     (bit for bit against one device) and [cuda:0, cpu] (within its
+     tolerance; on one card, what shows a tensor on the wrong device);
+     whether distinct cards were used;
   5. the gapped kernel (one direction, from the characters to the
      traceback) against its plain PyTorch version on the card: on the
      inputs of the main path's first launch (its own batch shape, whose
@@ -539,7 +552,9 @@ def main() -> int:
     from priblast_tpu_torch.search import ungapped as ung
     from priblast_tpu_torch.utils import alphabet, fasta, store
     from priblast_tpu_torch.utils import profiling as prof
-    from priblast_tpu_torch.utils.params import RisParams
+    from priblast_tpu_torch.models import db as db_model
+    from priblast_tpu_torch.parallel import dist
+    from priblast_tpu_torch.utils.params import DbParams, RisParams
 
     # ---- 1. device ---------------------------------------------------------
     card = subprocess.run(
@@ -552,6 +567,12 @@ def main() -> int:
           f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()} | "
           f"host cores {cores} (affinity {affinity})", flush=True)
     dev = torch.device("cuda")
+    own = dist.local_devices("cuda")
+    print(f"[device] --device cuda gives this process "
+          f"{[str(d) for d in own]}", flush=True)
+    check(own == [torch.device("cuda", i)
+                  for i in range(torch.cuda.device_count())],
+          f"--device cuda gives {own}, not every card")
 
     # ---- 2. build, both toolchains started together -------------------------
     def timed(fn):
@@ -594,7 +615,7 @@ def main() -> int:
     mid0 = pipeline.mid_stage
 
     def run_rec(self, codes, lengths):
-        acc_devices.add(str(self.device))
+        acc_devices.update(str(d) for d in self.devices)
         access_batches.append((codes.copy(), np.asarray(lengths).copy()))
         return run0(self, codes, lengths)
 
@@ -799,9 +820,9 @@ def main() -> int:
     for idx in order[:N_STAGED]:
         q_enc = alphabet.encode_query(seqs[idx], p.repeat_flag)
         queries.append((q_enc, native.sa_build(q_enc), *q_access[idx]))
-    dp = pipeline.DbPack(chunks, device=dev)
+    dp = pipeline.DbPack(chunks, devices=dev)
     qp = pipeline.QueryPack(*([q[k] for q in queries] for k in (0, 2, 3, 1)),
-                            device=dev)
+                            devices=dev)
     t0 = time.perf_counter()
     s_st = pipeline.seed_stage(p, chunks, queries, threads)
     pipeline._hit_bases(s_st, qp, dp)
@@ -811,7 +832,7 @@ def main() -> int:
     t0 = time.perf_counter()
     s_fu = fused.fused_stage(p, seed.seed_candidates(p, chunks, queries,
                                                      threads),
-                             qp, dp, device=dev)
+                             qp, dp, devices=dev)
     t_fu = time.perf_counter() - t0
     check(len(s_fu) > 0, "no post-threshold hits in the staged/fused phase")
     check(s_st.groups == s_fu.groups, "staged and fused groups differ")
@@ -831,12 +852,12 @@ def main() -> int:
     q_enc = alphabet.encode_query(seqs[q1], p.repeat_flag)
     one = [(q_enc, native.sa_build(q_enc), *q_access[q1])]
     qp1 = pipeline.QueryPack(*([q[k] for q in one] for k in (0, 2, 3, 1)),
-                             device=dev)
+                             devices=dev)
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipeline.search_all(p, chunks, one, qp1, dp, device=dev,
+        pipeline.search_all(p, chunks, one, qp1, dp, devices=dev,
                             threads=threads)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
@@ -1021,6 +1042,113 @@ def main() -> int:
           f"two-process db files differ from one process's: {diffs}")
     check(n_diff == 0, f"two-process ris body differs on {n_diff} lines")
 
+    # ---- 4j. several devices in one process
+    n_cards = torch.cuda.device_count()
+    devs = ([torch.device("cuda", i) for i in range(n_cards)]
+            if n_cards >= 2 else [torch.device("cuda", 0)] * 2)
+    k = len(devs)
+    md = work / "multidev"
+    md.mkdir(exist_ok=True)
+    # the plan's inputs: each accessibility batch's rows, each wave's
+    # pairs, each gapped stage's hits
+    sizes = {"rows": [], "pairs": [], "hits": []}
+    wb_init0 = fused._WaveBuffers.__init__
+
+    def rows_rec(self, codes, lengths):
+        sizes["rows"].append(codes.shape[0])
+        return run0(self, codes, lengths)
+
+    def wb_rec(self, *a, **kw):
+        wb_init0(self, *a, **kw)
+        sizes["pairs"].append(self.tot)
+
+    def hits_rec(stream, *a, **kw):
+        sizes["hits"].append(len(stream))
+        return gstage0(stream, *a, **kw)
+
+    batched.BatchedRaccess.run = rows_rec
+    fused._WaveBuffers.__init__ = wb_rec
+    pipeline.gapped_stage = hits_rec
+    gapped_sweep.launches = uop.launches = 0
+    acs.inside_launches = acs.outside_launches = 0
+    try:
+        t0 = time.perf_counter()
+        db_model.run(DbParams(input=str(work / "db.fa"),
+                              db_name=str(md / "db_gpu")), devices=devs)
+        t_kdb = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ris_model.run(RisParams(input=str(work / "q.fa"),
+                                output=str(md / "ris_gpu.txt"),
+                                db_name=str(db_gpu)), devices=devs)
+        t_kris = time.perf_counter() - t0
+    finally:
+        batched.BatchedRaccess.run = run0
+        fused._WaveBuffers.__init__ = wb_init0
+        pipeline.gapped_stage = gstage0
+    got_launches = {"access_inside": acs.inside_launches,
+                    "access_outside": acs.outside_launches,
+                    "ungapped_extend": uop.launches,
+                    "gapped_extend": gapped_sweep.launches}
+
+    def parts(n: int) -> int:
+        """Non-empty shards of an n-row batch over the devices."""
+        return sum(hi > lo for lo, hi in dist.split_rows(n, k))
+
+    block = min(fused.block_cap(d) for d in dist.distinct(devs))
+    gcap = pipeline.gapped_cap(devs)
+    n_access = sum(parts(b) for b in sizes["rows"])
+    plan = {"access_inside": n_access, "access_outside": n_access,
+            "ungapped_extend": sum(parts(min(block, n - o))
+                                   for n in sizes["pairs"]
+                                   for o in range(0, n, block)),
+            "gapped_extend": sum(2 * parts(min(gcap, n - o))
+                                 for n in sizes["hits"]
+                                 for o in range(0, n, gcap))}
+    diffs = {}
+    for ext in ("bas", "seq", "ind", "nam", "acc"):
+        a = Path(f"{db_gpu}.{ext}").read_bytes()
+        b = (md / f"db_gpu.{ext}").read_bytes()
+        diffs[ext] = (int((np.frombuffer(a, np.uint8)
+                           != np.frombuffer(b, np.uint8)).sum())
+                      if len(a) == len(b) else f"sizes {len(a)}, {len(b)}")
+    md_body = (md / "ris_gpu.txt").read_text().splitlines()[2:]
+    n_diff = sum(a != b for a, b in zip(main_body, md_body)) + abs(
+        len(main_body) - len(md_body))
+    print(f"[multidev] {k} shards on {[str(d) for d in devs]}: db "
+          f"{t_kdb:.3f}s, ris {t_kris:.3f}s (one device, [main]: db "
+          f"{t_db:.3f}s, ris {t_ris:.3f}s); bytes that differ from [main]'s "
+          f"db files {json.dumps(diffs)}; ris body {len(md_body)} lines, "
+          f"{n_diff} differ {tag}", flush=True)
+    print(f"[multidev] kernel launches: planned {json.dumps(plan)}, measured "
+          f"{json.dumps(got_launches)} (one launch per non-empty shard of "
+          f"{len(sizes['rows'])} accessibility batches of "
+          f"{sizes['rows']} rows, of the pair blocks of {block} of "
+          f"{sizes['pairs']} pairs, and two per non-empty shard of the hit "
+          f"batches of {gcap} of {sizes['hits']} hits)", flush=True)
+    check(all(v == 0 for v in diffs.values()),
+          f"db files on {k} shards differ from one device's: {diffs}")
+    check(n_diff == 0, f"ris body on {k} shards differs on {n_diff} lines")
+    check(got_launches == plan, f"kernel launches on {k} shards "
+          f"{got_launches} differ from the plan {plan}")
+    for label, ddevs in (("2 shards on cuda:0", [devs[0]] * 2),
+                         ("4 shards on cuda:0", [devs[0]] * 4),
+                         ("cuda:0 and the CPU", [devs[0],
+                                                 torch.device("cpu")])):
+        t0 = time.perf_counter()
+        try:
+            res = dist.dryrun_multichip(ddevs)
+        except AssertionError as e:
+            fail(f"dryrun_multichip with {label}: {e}")
+        print(f"[multidev] dryrun_multichip {label}: "
+              f"{'bit for bit' if res['exact'] else 'within tolerance'}, "
+              f"{res['hits']} hits, max acc diff {res['acc_diff']:.3g}, max "
+              f"energy diff {res['energy_diff']:.3g} kcal/mol (limit "
+              f"{0 if res['exact'] else dist.MIXED_TOL}), "
+              f"{time.perf_counter() - t0:.3f}s {tag}", flush=True)
+    used = (f"yes, {k} cards" if n_cards >= 2 else
+            "no: this machine has one card, so the shards shared cuda:0")
+    print(f"[multidev] distinct cards used: {used}", flush=True)
+
     # ---- 5. the gapped kernel vs its plain version, on the card ---------
     def hold(label, a, k):
         """Kernel vs plain version on the same inputs: integers and
@@ -1060,7 +1188,7 @@ def main() -> int:
     encs = [alphabet.encode_query(seqs[i], p.repeat_flag) for i in order]
     qp = pipeline.QueryPack(encs, [q_access[i][0] for i in order],
                             [q_access[i][1] for i in order],
-                            [native.sa_build(e) for e in encs], device=dev)
+                            [native.sa_build(e) for e in encs], devices=dev)
     keys = (*pipeline.STREAM_KEYS, "qb", "qab", "dbb", "aoff", "coff")
     sub = {k: soa[k][:4096 + 37] for k in keys}
     for dtype, max_ext in (("float32", 32), ("float64", 32),

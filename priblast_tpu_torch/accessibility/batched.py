@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from priblast_tpu_torch.accessibility.linear_ref import LinearModel
+from priblast_tpu_torch.parallel import dist
 from priblast_tpu_torch.utils import thermo
 
 TURN = thermo.TURN
@@ -828,23 +829,30 @@ def probability_pass(t: Tables, g: Grids, pg: ProbGrids, ins, outs,
     srcL = {u: zrow for u in range(ML + 1)}
     srcR = {u: zrow for u in range(ML + 1)}
 
+    def band_conv(x, weights):
+        """x @ K for the banded K[e, e + u] = weights[u] (u >= 1, in the
+        working dtype): x shifted u cells along the band axis times
+        weights[u], added in ascending u, one elementwise product and add
+        each. A matrix product would sum otherwise: on the card its order
+        depends on the batch's row count, and a row must get the same
+        bits in any batch."""
+        out = torch.zeros_like(x)
+        for u, wt in weights:
+            if u < band:
+                out[..., u:] += x[..., : band - u] * float(npdt(wt))
+        return out
+
     # general interior, right side (per u2)
     for u2 in range(max(1, w), ML + 1):
-        KMat = np.zeros((band, band))
-        for u1 in range(1, ML - u2 + 1):
-            idx = np.arange(band - u1)
-            KMat[idx, idx + u1] = KInt[u1 + u2, u2]
-        H = stem_m @ torch.as_tensor(KMat, dtype=dtype, device=dev)
+        H = band_conv(stem_m, [(u1, KInt[u1 + u2, u2])
+                               for u1 in range(1, ML - u2 + 1)])
         Hs = _shift_cols(_shift_d(H, u2), u2)
         srcR[u2] = srcR[u2] + (bse_m * Hs).sum(2)
 
     # general interior, left side (per u1)
     for u1 in range(max(1, w), ML + 1):
-        KMat = np.zeros((band, band))
-        for u2 in range(1, ML - u1 + 1):
-            idx = np.arange(band - u2)
-            KMat[idx, idx + u2] = KInt[u1 + u2, u2]
-        G = D_sm @ torch.as_tensor(KMat, dtype=dtype, device=dev)
+        G = band_conv(D_sm, [(u2, KInt[u1 + u2, u2])
+                             for u2 in range(1, ML - u1 + 1)])
         Gs = _shift_cols(_shift_d(G, u1), -u1)
         srcL[u1] = srcL[u1] + (D_bse_m * Gs).sum(2)
 
@@ -934,17 +942,30 @@ def scan_probabilities(t: Tables, g: Grids, s_padded, lengths,
 
 
 def window_probabilities(w_span: int, min_acc_len: int, n_max: int, dtype,
-                         s_padded: torch.Tensor, lengths: torch.Tensor):
+                         s_padded: torch.Tensor, lengths: torch.Tensor,
+                         t: Tables | None = None):
     """Unpaired probabilities of every window of size w and w + 1, in
     `dtype`: (p_w, p_w1), each [N+2, B] indexed by 1-based window start.
     The column scans run through ops/access_scan.py: the two kernels on
-    cuda, their plain versions on the CPU."""
+    cuda, their plain versions on the CPU. `t`: make_tables(w_span, dtype)
+    on the batch's device, built here where not given."""
     # imported here: ops/access_scan.py imports this module
     from priblast_tpu_torch.ops import access_scan
 
+    if s_padded.shape[0] == 1:
+        # a one-row batch runs as two copies of its row: the plain
+        # versions' matmuls and einsums sum in another order for a single
+        # row (a matrix-vector product), and a row must get the same bits
+        # in any batch (the shards of a split batch may hold one row)
+        p_w, p_w1 = window_probabilities(
+            w_span, min_acc_len, n_max, dtype,
+            s_padded.expand(2, -1).contiguous(),
+            lengths.expand(2).contiguous(), t)
+        return p_w[:, :1].contiguous(), p_w1[:, :1].contiguous()
     band = w_span + 2
     lengths = lengths.to(torch.int64)
-    t = make_tables(w_span, dtype=dtype, device=s_padded.device)
+    if t is None:
+        t = make_tables(w_span, dtype=dtype, device=s_padded.device)
     g = make_grids(t, s_padded, lengths, n_max, band, dtype)
     ins = access_scan.inside_scan(t, g, lengths, n_max, band, dtype)
     og, multi1 = outside_inputs(t, s_padded, lengths, n_max, band, dtype, g,
@@ -977,31 +998,52 @@ def accessibility_from_probabilities(p_w, p_w1, lengths, w: int,
 
 
 class BatchedRaccess:
-    """Public entry: accessibility for batches of equal-padded sequences on
-    one torch device."""
+    """Public entry: accessibility for batches of equal-padded sequences,
+    each batch's rows split over a list of torch devices (data parallel:
+    base pairs never span sequences, so the shards are independent; the
+    counterpart of the reference's per-rank sequence distribution,
+    src/fastafile_reader.cpp:135-314). The tables are built once per
+    distinct device."""
 
     def __init__(self, w_span: int, min_acc_len: int, dtype="float32", *,
-                 device):
+                 devices):
         self.w = w_span
         self.d = min_acc_len
         self.dtype = _DTYPES[dtype]
-        self.device = torch.device(device)
+        self.devices = dist.device_list(devices)
         self.kT = float(_linmodel(w_span).sp.kT)
+        self._tables = {dev: make_tables(w_span, self.dtype, dev)
+                        for dev in dist.distinct(self.devices)}
 
     def run(self, codes_batch: np.ndarray, lengths: np.ndarray):
         """codes_batch: [B, n_max] uint8 (0..4, zero padded); lengths: [B]
         int. Returns (acc, cond) float32 numpy [B, n_max] with the same
         layout as the exact engine (acc valid [0, n-d], cond valid
-        [d, n-1])."""
+        [d, n-1]). The rows are split over the devices (dist.split_rows;
+        an empty shard runs nothing), each shard at the batch's n_max on a
+        host thread of its own, and joined in order."""
         B, n_max = codes_batch.shape
         s = np.zeros((B, n_max + ML + 4), dtype=np.int64)
         s[:, 1: n_max + 1] = codes_batch
-        s = torch.as_tensor(s, device=self.device)
-        lens = torch.as_tensor(np.asarray(lengths, np.int64),
-                               device=self.device)
+        lens = np.asarray(lengths, np.int64)
+        shards = [(dev, lo, hi) for dev, (lo, hi) in zip(
+            self.devices, dist.split_rows(B, len(self.devices))) if hi > lo]
+        parts = dist.run_sharded(
+            lambda dev, lo, hi: self._run_rows(dev, s[lo:hi], lens[lo:hi],
+                                               n_max), shards)
+        if not parts:
+            empty = np.zeros((0, n_max), np.float32)
+            return empty, empty.copy()
+        return (np.concatenate([a for a, _ in parts]),
+                np.concatenate([c for _, c in parts]))
+
+    def _run_rows(self, dev, s: np.ndarray, lens: np.ndarray, n_max: int):
+        s = torch.as_tensor(s, device=dev)
+        lens = torch.as_tensor(lens, device=dev)
         with torch.no_grad():
             p_w, p_w1 = window_probabilities(self.w, self.d, n_max,
-                                             self.dtype, s, lens)
+                                             self.dtype, s, lens,
+                                             self._tables[dev])
             acc, cond = accessibility_from_probabilities(
                 p_w, p_w1, lens, self.d, n_max, self.kT)
         return acc.cpu().numpy(), cond.cpu().numpy()

@@ -4,8 +4,9 @@ Flags mirror the reference CLI (reference: src/main.cpp:36-111,
 src/db_construction_parameters.cpp:32-78,
 src/rna_interaction_search_parameters.cpp:33-95) plus `--engine` to select
 the device engine (`gpu`, the default) or the exact host engine, and
-`--device` to name the torch device the `gpu` engine runs on (`cuda`, the
-default; `cpu` runs the same code with the kernels' plain versions).
+`--device` to name the torch devices the `gpu` engine runs on (`cuda`, the
+default: every card the process owns, each batch split over them; `cpu`
+runs the same code with the kernels' plain versions).
 Several processes (PRIBLAST_NUM_PROCS, PRIBLAST_PROC_ID, PRIBLAST_COORD;
 parallel/multihost.py) split the sequences by `-a` and merge through part
 files under `-p`.
@@ -24,7 +25,10 @@ def _engine_flags(q) -> None:
     q.add_argument("--engine", dest="engine", default="gpu", choices=ENGINES)
     q.add_argument("--device", dest="device", default="cuda",
                    choices=DEVICES,
-                   help="torch device of the gpu engine")
+                   help="torch devices of the gpu engine: cuda = every "
+                        "card this process owns (with several processes, "
+                        "card c goes to process c mod their count), each "
+                        "batch split over them; cpu = the CPU")
     q.add_argument("--threads", dest="threads", type=int, default=0)
 
 

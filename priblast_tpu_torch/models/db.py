@@ -4,7 +4,8 @@ src/db_construction.cpp:37-83).
 Stages:
   1. read FASTA
   2. per-sequence accessibility DP (exact host engine, or the batched
-     PyTorch engine on the device with --engine gpu) — the hot stage
+     PyTorch engine with --engine gpu, each batch split over the
+     process's devices) — the hot stage
   3. search-encode all sequences (reversed + sentinels)
   4. per page of `chunk_size` sequences: suffix array + k-mer hash
   5. write .bas/.seq/.ind/.acc/.nam (byte-compatible with the reference)
@@ -25,7 +26,7 @@ import numpy as np
 from priblast_tpu_torch.ops import native
 from priblast_tpu_torch.utils import alphabet, fasta, store
 from priblast_tpu_torch.utils import profiling as prof
-from priblast_tpu_torch.utils.params import DbParams, resolve_device
+from priblast_tpu_torch.utils.params import DbParams
 
 
 def compute_accessibilities_exact(seqs: list[str], w: int, d: int,
@@ -52,22 +53,30 @@ def compute_accessibilities_exact(seqs: list[str], w: int, d: int,
     return accs, conds
 
 
-def run(p: DbParams, threads: int | None = None) -> None:
+def run(p: DbParams, threads: int | None = None, devices=None) -> None:
+    """The db step. `devices`: the gpu engine's torch devices (one or a
+    list), in place of every card this process owns (`--device cuda`) or
+    the CPU (`--device cpu`)."""
     from priblast_tpu_torch.parallel import multihost
 
     p.validate()
     pidx, pcount = multihost.init_from_env()
     try:
-        _run(p, threads, pidx, pcount)
+        _run(p, threads, pidx, pcount, devices)
     finally:
         multihost.shutdown()
 
 
-def _run(p: DbParams, threads: int | None, pidx: int, pcount: int) -> None:
-    from priblast_tpu_torch.parallel import multihost
+def _run(p: DbParams, threads: int | None, pidx: int, pcount: int,
+         devices=None) -> None:
+    from priblast_tpu_torch.parallel import dist, multihost
 
-    device = (resolve_device(p.engine, p.device, pidx) if p.engine == "gpu"
-              else None)
+    if p.engine != "gpu":
+        devices = None
+    elif devices is None:
+        devices = dist.local_devices(p.device, pidx, pcount)
+    else:
+        devices = dist.device_list(devices)
     names, seqs = fasta.read_fasta(p.input)
     if pcount > 1:
         mine = sorted(multihost.partition_for(
@@ -76,13 +85,13 @@ def _run(p: DbParams, threads: int | None, pidx: int, pcount: int) -> None:
     else:
         mine, my_seqs = list(range(len(seqs))), seqs
 
-    with prof.stage("db.accessibility", device):
-        if device is not None:
+    with prof.stage("db.accessibility", devices):
+        if devices is not None:
             from priblast_tpu_torch.models import db_gpu
 
             accs, conds = db_gpu.compute_accessibilities(
                 my_seqs, p.maximal_span, p.min_accessible_length,
-                device=device)
+                devices=devices)
         else:
             accs, conds = compute_accessibilities_exact(
                 my_seqs, p.maximal_span, p.min_accessible_length, threads)

@@ -48,13 +48,14 @@ def plan_batches(lengths: list[int]):
         k += bsz
 
 
-def compute_accessibilities(seqs: list[str], w: int, d: int, *, device):
-    """Per-sequence float32 accessibility via the batched device engine.
-    Returns lists (accs, conds) in the original sequence order, matching
-    the exact engine's layout (acc of length n - d + 1, cond of length n)."""
+def compute_accessibilities(seqs: list[str], w: int, d: int, *, devices):
+    """Per-sequence float32 accessibility via the batched device engine,
+    each batch split over `devices`. Returns lists (accs, conds) in the
+    original sequence order, matching the exact engine's layout (acc of
+    length n - d + 1, cond of length n)."""
     from priblast_tpu_torch.accessibility.batched import BatchedRaccess
 
-    engine = BatchedRaccess(w, d, device=device)
+    engine = BatchedRaccess(w, d, devices=devices)
     n = len(seqs)
     accs: list[np.ndarray | None] = [None] * n
     conds: list[np.ndarray | None] = [None] * n

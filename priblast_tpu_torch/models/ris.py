@@ -19,7 +19,7 @@ import numpy as np
 from priblast_tpu_torch.ops import native
 from priblast_tpu_torch.utils import alphabet, fasta, store
 from priblast_tpu_torch.utils import profiling as prof
-from priblast_tpu_torch.utils.params import RisParams, resolve_device
+from priblast_tpu_torch.utils.params import RisParams
 
 
 def format_hits(p: RisParams, res: dict, chunk: store.DbChunk, q_name: str,
@@ -102,21 +102,29 @@ def search_query(p: RisParams, chunks: list[store.DbChunk], name: str,
     return lines
 
 
-def run(p: RisParams, threads: int | None = None) -> None:
+def run(p: RisParams, threads: int | None = None, devices=None) -> None:
+    """The ris step. `devices`: the gpu engine's torch devices (one or a
+    list), in place of every card this process owns (`--device cuda`) or
+    the CPU (`--device cpu`)."""
     from priblast_tpu_torch.parallel import multihost
 
     pidx, pcount = multihost.init_from_env()
     try:
-        _run(p, threads, pidx, pcount)
+        _run(p, threads, pidx, pcount, devices)
     finally:
         multihost.shutdown()
 
 
-def _run(p: RisParams, threads: int | None, pidx: int, pcount: int) -> None:
-    from priblast_tpu_torch.parallel import multihost
+def _run(p: RisParams, threads: int | None, pidx: int, pcount: int,
+         devices=None) -> None:
+    from priblast_tpu_torch.parallel import dist, multihost
 
-    device = (resolve_device(p.engine, p.device, pidx) if p.engine == "gpu"
-              else None)
+    if p.engine != "gpu":
+        devices = None
+    elif devices is None:
+        devices = dist.local_devices(p.device, pidx, pcount)
+    else:
+        devices = dist.device_list(devices)
     p.load_db_params()
     names, seqs = fasta.read_fasta(p.input)
     chunks = store.load_chunks(p.db_name, p.hash_size)
@@ -132,11 +140,11 @@ def _run(p: RisParams, threads: int | None, pidx: int, pcount: int) -> None:
     threads = threads or min(32, os.cpu_count() or 1)
     results: list[list[str] | None] = [None] * len(seqs)
 
-    if device is not None:
+    if devices is not None:
         from priblast_tpu_torch.models import ris_gpu
 
         ris_gpu.run_queries(p, chunks, names, seqs, my_order, results,
-                            device=device, threads=threads)
+                            devices=devices, threads=threads)
     elif threads > 1 and len(my_order) > 1:
         with cf.ThreadPoolExecutor(threads) as ex:
             futs = {ex.submit(search_query, p, chunks, names[i], seqs[i]): i

@@ -11,7 +11,9 @@ then the router sends each query to one of two search chains:
   pool, on the same device-computed accessibilities.
 Hit semantics are identical to the exact engine; energies carry the device
 dtype's accumulation noise on the device chain (use --engine exact for
-byte parity).
+byte parity). The device work of both (accessibility, and the device
+chain's stages) is split over the process's list of devices
+(parallel/dist.py); the router counts them as the device side's width.
 
 A failure on the device is not retried on the host: it ends the run.
 """
@@ -28,6 +30,7 @@ import numpy as np
 
 from priblast_tpu_torch.models import db_gpu
 from priblast_tpu_torch.ops import native
+from priblast_tpu_torch.parallel import dist
 from priblast_tpu_torch.utils import alphabet
 from priblast_tpu_torch.utils import profiling as prof
 from priblast_tpu_torch.utils.params import RisParams
@@ -68,9 +71,6 @@ DEV_PAIR_RATE = float(os.environ.get("PRIBLAST_DEV_PAIR_RATE", 1.821e7))
 DEV_HIT_RATE = float(os.environ.get("PRIBLAST_DEV_HIT_RATE", 7.516e4))
 HIT_DENSITY = float(os.environ.get("PRIBLAST_HIT_DENSITY", 0.09855))
 DEV_DISPATCH_S = float(os.environ.get("PRIBLAST_DEV_DISPATCH_S", 0.1357))
-# Several devices in one process are not ported: the device side is one
-# device.
-N_DEV = 1
 
 # measured rates (pairs/s) by side, updated after each wave by _calibrate;
 # each side writes only its own key
@@ -170,15 +170,18 @@ def _accessibility_batched(engine, seqs, lengths, idxs):
 
 
 def run_queries(p: RisParams, chunks, names, seqs, order, results, *,
-                device, threads: int | None = None) -> None:
+                devices, threads: int | None = None) -> None:
     """Fill results[idx] with the formatted lines of every query idx in
-    `order`: accessibility on `device`, then each wave's queries routed
-    over the device chain and the host chain (device_extend_mode)."""
+    `order`: accessibility split over `devices` (one device or a list),
+    then each wave's queries routed over the device chain (its device
+    stages split over `devices`) and the host chain
+    (device_extend_mode)."""
     from priblast_tpu_torch.accessibility.batched import BatchedRaccess
     from priblast_tpu_torch.search import pipeline as pl
 
+    devices = dist.device_list(devices)
     engine = BatchedRaccess(p.maximal_span, p.min_accessible_length,
-                            dtype=p.dtype, device=device)
+                            dtype=p.dtype, devices=devices)
     native.lib()
     threads = threads or min(32, os.cpu_count() or 1)
     lengths = [len(s) for s in seqs]
@@ -187,17 +190,17 @@ def run_queries(p: RisParams, chunks, names, seqs, order, results, *,
     done_q, t_start = 0, time.perf_counter()
     for wi, wave in enumerate(_wave_plan(order, lengths)):
         with prof.device_trace(f"ris_wave{wi}"):
-            with prof.stage("ris.accessibility", device):
+            with prof.stage("ris.accessibility", devices):
                 accs = _accessibility_batched(engine, seqs, lengths, wave)
             queries = []
             for idx in wave:
                 q_enc = alphabet.encode_query(seqs[idx], p.repeat_flag)
                 queries.append((q_enc, native.sa_build(q_enc), *accs[idx]))
-            split = route(p, chunks, queries, mode, device, threads)
+            split = route(p, chunks, queries, mode, devices, threads)
             if split[1] and dbpack is None:
-                dbpack = pl.DbPack(chunks, device=device)
+                dbpack = pl.DbPack(chunks, devices=devices)
             found = _search_wave(p, chunks, [names[i] for i in wave],
-                                 queries, split, dbpack, device, threads)
+                                 queries, split, dbpack, devices, threads)
         for qid, lines in found.items():
             results[wave[qid]] = lines
         done_q += len(wave)
@@ -207,11 +210,12 @@ def run_queries(p: RisParams, chunks, names, seqs, order, results, *,
                   "q/s)", file=sys.stderr, flush=True)
 
 
-def route(p, chunks, queries, mode: str, device, threads: int):
+def route(p, chunks, queries, mode: str, devices, threads: int):
     """Which chain searches each query of a wave. Returns (host qids,
     device qids, the seed candidates or None, pairs per qid); in `auto` the
     host seeds the wave once, and the device chain reuses the candidates
-    of its queries."""
+    of its queries. The device side's rate counts len(devices) devices, as
+    the JAX package counts its mesh."""
     from priblast_tpu_torch.search import seed
 
     every = list(range(len(queries)))
@@ -228,16 +232,18 @@ def route(p, chunks, queries, mode: str, device, threads: int):
     if hyb == "auto":
         # the hybrid needs a card, and spare cores: on a host of few
         # threads the host chain starves the device chain's own host work
-        hyb = "1" if device.type == "cuda" and threads >= 4 else "0"
+        has_card = any(dev.type == "cuda" for dev in devices)
+        hyb = "1" if has_card and threads >= 4 else "0"
     if hyb in ("0", "false"):
-        if device_extend_wins(sum(pairs_by_q.values()), threads, N_DEV):
+        if device_extend_wins(sum(pairs_by_q.values()), threads,
+                              len(devices)):
             return [], every, cands, pairs_by_q
         return every, [], cands, pairs_by_q
-    host_qids, dev_qids = split_wave(pairs_by_q, threads, N_DEV)
+    host_qids, dev_qids = split_wave(pairs_by_q, threads, len(devices))
     return host_qids, dev_qids, cands, pairs_by_q
 
 
-def _search_wave(p, chunks, q_names, queries, split, dbpack, device,
+def _search_wave(p, chunks, q_names, queries, split, dbpack, devices,
                  threads: int) -> dict[int, list[str]]:
     """Search one wave's queries on the chains `split` (route's result)
     assigns them. Returns {qid: formatted lines}. With queries on both sides
@@ -268,10 +274,10 @@ def _search_wave(p, chunks, q_names, queries, split, dbpack, device,
         t0 = time.perf_counter()
         qpack = pl.QueryPack([q[0] for q in queries], [q[2] for q in queries],
                              [q[3] for q in queries], [q[1] for q in queries],
-                             device=device)
+                             devices=devices)
         dev_set = set(dev_qids)
         stream, finished = pl.search_all(
-            p, chunks, queries, qpack, dbpack, device=device,
+            p, chunks, queries, qpack, dbpack, devices=devices,
             threads=max(1, threads // 2) if host_qids else threads,
             dtype=p.dtype,
             cands=None if cands is None else

@@ -143,11 +143,11 @@ def inside_scan(t: ab.Tables, g: ab.Grids, lengths: torch.Tensor,
         return inside_plain(t, g, lengths, n_max, band, dtype)
     if dev.type != "cuda":
         raise ValueError(f"inside_scan runs on cuda or cpu, not {dev}")
-    global inside_launches
     with torch.cuda.device(dev):
         out = _inside_call(_fn("inside", dtype), t, g, lengths, n_max, band,
                            dtype, torch.cuda.current_stream(dev).cuda_stream)
-    inside_launches += B > 0  # an empty batch launches nothing
+    # an empty batch launches nothing
+    nvcc.add_launches(globals(), "inside_launches", int(B > 0))
     return out
 
 
@@ -183,12 +183,11 @@ def outside_scan(t: ab.Tables, og: ab.OutsideGrids, multi1_full,
         return outside_plain(t, og, multi1_full, n_max, band, dtype)
     if dev.type != "cuda":
         raise ValueError(f"outside_scan runs on cuda or cpu, not {dev}")
-    global outside_launches
     with torch.cuda.device(dev):
         out = _outside_call(_fn("outside", dtype), t, og, multi1_full, n_max,
                             band, dtype,
                             torch.cuda.current_stream(dev).cuda_stream)
-    outside_launches += B > 0
+    nvcc.add_launches(globals(), "outside_launches", int(B > 0))
     return out
 
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -266,27 +267,34 @@ def pack_tables() -> np.ndarray:
     return buf
 
 
+# device tensors by (what, ..., device); a lock guards it, as the shards
+# of a split stage fill it from several threads at once
 _device_cache: dict = {}
+_cache_lock = threading.RLock()
 
 
 def _device_tables(device):
     key = ("tables", str(device))
-    if key not in _device_cache:
-        _device_cache[key] = torch.as_tensor(pack_tables(), device=device)
-    return _device_cache[key]
+    with _cache_lock:
+        if key not in _device_cache:
+            _device_cache[key] = torch.as_tensor(pack_tables(),
+                                                 device=device)
+        return _device_cache[key]
 
 
 def _loop_consts(dropout: int, dt, device):
     """[2, dropout+1]: interior-loop and bulge constants per loop size s
     (bulge 0 for s < 2), in the working dtype."""
     key = ("consts", dropout, dt, str(device))
-    if key not in _device_cache:
-        r = _tables_np()
-        _device_cache[key] = torch.tensor(
-            [[float(r["intloop"][min(s, 30)]) for s in range(dropout + 1)],
-             [_bulge_const(s) if s >= 2 else 0.0
-              for s in range(dropout + 1)]], dtype=dt, device=device)
-    return _device_cache[key]
+    with _cache_lock:
+        if key not in _device_cache:
+            r = _tables_np()
+            _device_cache[key] = torch.tensor(
+                [[float(r["intloop"][min(s, 30)])
+                  for s in range(dropout + 1)],
+                 [_bulge_const(s) if s >= 2 else 0.0
+                  for s in range(dropout + 1)]], dtype=dt, device=device)
+        return _device_cache[key]
 
 
 def _kernel_consts(dropout: int, dt, device):
@@ -297,27 +305,32 @@ def _kernel_consts(dropout: int, dt, device):
     bulge constant; sizes s <= 30, where every constant is an integer).
     Returns (tensor, rlo, nspan)."""
     key = ("kconsts", dropout, dt, str(device))
-    if key not in _device_cache:
-        r = thermo.RAW
-        inf = 100_000           # the tables' 1,000,000 entries fall back
-        small = lambda a: a[np.abs(a) < inf]  # noqa: E731
-        b1 = int(r.bulge37[1])
-        sizes = range(2, min(dropout, 30) + 1)
-        mism = r.mismatchI37
-        tau = int(r.TerminalAU)
-        cand = [small(r.stack37), b1 + small(r.stack37), r.int11_37,
-                r.int21_37, r.int22_37]
-        cand += [2 * np.array([mism.min(), mism.max()]) + v
-                 for v in small(r.internal_loop37[list(sizes)])]
-        cand += [np.array([0, 2 * tau]) + v
-                 for v in small(r.bulge37[list(sizes)])]
-        flat = np.concatenate([np.ravel(c) for c in cand])
-        rlo, rhi = int(flat.min()), int(flat.max())
-        div = (torch.arange(rlo, rhi + 1, dtype=torch.float64).to(dt)
-               / torch.tensor(100.0, dtype=dt))
-        buf = torch.cat([_loop_consts(dropout, dt, "cpu").reshape(-1), div])
-        _device_cache[key] = (buf.to(device), rlo, rhi - rlo + 1)
-    return _device_cache[key]
+    with _cache_lock:
+        if key not in _device_cache:
+            _device_cache[key] = _make_kernel_consts(dropout, dt, device)
+        return _device_cache[key]
+
+
+def _make_kernel_consts(dropout: int, dt, device):
+    r = thermo.RAW
+    inf = 100_000           # the tables' 1,000,000 entries fall back
+    small = lambda a: a[np.abs(a) < inf]  # noqa: E731
+    b1 = int(r.bulge37[1])
+    sizes = range(2, min(dropout, 30) + 1)
+    mism = r.mismatchI37
+    tau = int(r.TerminalAU)
+    cand = [small(r.stack37), b1 + small(r.stack37), r.int11_37,
+            r.int21_37, r.int22_37]
+    cand += [2 * np.array([mism.min(), mism.max()]) + v
+             for v in small(r.internal_loop37[list(sizes)])]
+    cand += [np.array([0, 2 * tau]) + v
+             for v in small(r.bulge37[list(sizes)])]
+    flat = np.concatenate([np.ravel(c) for c in cand])
+    rlo, rhi = int(flat.min()), int(flat.max())
+    div = (torch.arange(rlo, rhi + 1, dtype=torch.float64).to(dt)
+           / torch.tensor(100.0, dtype=dt))
+    buf = torch.cat([_loop_consts(dropout, dt, "cpu").reshape(-1), div])
+    return buf.to(device), rlo, rhi - rlo + 1
 
 
 # ---- the wrapper ---------------------------------------------------------------
@@ -378,8 +391,8 @@ def gapped_extend_dir(q_start, db_start, id_anchor, energy0, acc0, valid,
     with torch.cuda.device(dev):
         out = _call(fn, args, torch.cuda.current_stream(dev).cuda_stream,
                     **kw)
-    global launches
-    launches += 1
+    # an empty batch launches nothing
+    nvcc.add_launches(globals(), "launches", int(B > 0))
     return out
 
 

@@ -2,7 +2,9 @@
 port with nvcc into a shared library under build/kernels/ at the
 repository root, once per version of the source and flags (the file name
 carries a hash of both; a failed build raises); `check_tensor` is the
-check a kernel's wrapper makes on each tensor before it passes a pointer."""
+check a kernel's wrapper makes on each tensor before it passes a pointer;
+`add_launches` adds to a wrapper's launch counter under a lock, since the
+shards of a split stage launch from several threads at once."""
 
 from __future__ import annotations
 
@@ -10,19 +12,39 @@ import hashlib
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
+_count_lock = threading.Lock()
+_build_locks: dict = {}
+_build_locks_lock = threading.Lock()
+
+
+def add_launches(counters: dict, name: str, n: int = 1) -> None:
+    """counters[name] += n under a lock (`counters` is a wrapper module's
+    globals(), `name` its launch counter)."""
+    with _count_lock:
+        counters[name] += n
+
 
 def build(src: Path, flags) -> Path:
     """nvcc `flags` on `src` -> build/kernels/lib<stem>_<hash>.so; the
-    write is atomic, so concurrent builds are safe."""
+    write is atomic, so concurrent builds are safe, and threads of one
+    process that ask for the same library wait for one build."""
     tag = hashlib.sha256(src.read_bytes()
                          + " ".join(flags).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{src.stem}_{tag}.so"
+    with _build_locks_lock:
+        lock = _build_locks.setdefault(out, threading.Lock())
+    with lock:
+        return _build(src, flags, out)
+
+
+def _build(src: Path, flags, out: Path) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

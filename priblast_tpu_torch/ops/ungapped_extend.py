@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from pathlib import Path
 
 import torch
@@ -76,17 +77,19 @@ def _lib() -> ctypes.CDLL:
 
 
 _device_tables: dict = {}
+_tables_lock = threading.Lock()  # shards of a split stage fill it at once
 
 
 def _kernel_tables(device):
     key = str(device)
-    if key not in _device_tables:
-        t = _tables(device)
-        for name, size in _TABLES:
-            assert t[name].numel() == size, name
-        _device_tables[key] = tuple(t[name].contiguous()
-                                    for name, _ in _TABLES)
-    return _device_tables[key]
+    with _tables_lock:
+        if key not in _device_tables:
+            t = _tables(device)
+            for name, size in _TABLES:
+                assert t[name].numel() == size, name
+            _device_tables[key] = tuple(t[name].contiguous()
+                                        for name, _ in _TABLES)
+        return _device_tables[key]
 
 
 def ungapped_extend(q_sp, db_sp, length, dbseq_start, acc_e, hyb_e, qb, qab,
@@ -118,11 +121,11 @@ def ungapped_extend(q_sp, db_sp, length, dbseq_start, acc_e, hyb_e, qb, qab,
                                     dbufs, d, dropout)
     if dev.type != "cuda":
         raise ValueError(f"ungapped_extend runs on cuda or cpu, not {dev}")
-    global launches
     with torch.cuda.device(dev):
         out = _call(_lib().ungapped_extend, cols, acc_e, hyb_e, flat,
                     torch.cuda.current_stream(dev).cuda_stream, d, dropout)
-    launches += B > 0  # an empty batch launches nothing
+    # an empty batch launches nothing
+    nvcc.add_launches(globals(), "launches", int(B > 0))
     return out
 
 

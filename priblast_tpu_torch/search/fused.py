@@ -28,6 +28,9 @@ extension as float32 acc_e/hyb_e, as the staged path feeds them.
 
 Pair ids are int64: no wave needs splitting to keep them from wrapping.
 The block size only bounds device memory; results do not depend on it.
+With several devices each block is cut into contiguous sub-blocks, one
+per device (parallel/dist.py), each run on its device's copies of the
+packs and candidates; joined in device order, pair ids stay ascending.
 
 Each part is timed as a sub-stage of `ris.fused` (ris.fused.pack,
 .expand, .ungapped, .threshold; synchronised on the card).
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from priblast_tpu_torch.ops import ungapped_extend as uop
+from priblast_tpu_torch.parallel import dist
 from priblast_tpu_torch.search import pipeline as pl
 from priblast_tpu_torch.utils import profiling as prof
 
@@ -61,13 +65,14 @@ _ROWS = 7
 PAIR_BYTES = 288
 
 
-class _WaveBuffers:
-    """The candidates of a wave on the device: rows `cand` [_ROWS, NC]
-    int64, hybrid energies `energy` [NC] float64 and the pair-count prefix
-    `cum` [NC + 1] int64; `gbounds` holds each (query, chunk) group's pair
-    id range (qid, cid, lo, hi) and `tot` the wave's pair count."""
+class _WaveBuffers(pl.OnDevices):
+    """The candidates of a wave on each distinct device of `devices` (one
+    device or a list): rows `cand` [_ROWS, NC] int64, hybrid energies
+    `energy` [NC] float64 and the pair-count prefix `cum` [NC + 1] int64;
+    `gbounds` holds each (query, chunk) group's pair id range (qid, cid,
+    lo, hi) and `tot` the wave's pair count."""
 
-    def __init__(self, cands, qpack, dbpack, device):
+    def __init__(self, cands, qpack, dbpack, devices):
         rows, energy, counts = [], [], []
         self.gbounds = []
         tot = 0
@@ -96,11 +101,9 @@ class _WaveBuffers:
         cum = np.zeros(cand.shape[1] + 1, np.int64)
         if counts:
             np.cumsum(np.concatenate(counts), out=cum[1:])
-        self.cand = torch.as_tensor(cand, device=device)
-        self.energy = torch.as_tensor(
-            np.concatenate(energy) if energy else np.zeros(0), device=device,
-            dtype=torch.float64)
-        self.cum = torch.as_tensor(cum, device=device)
+        energy = (np.concatenate(energy).astype(np.float64) if energy
+                  else np.zeros(0))
+        self._place({"cand": cand, "energy": energy, "cum": cum}, devices)
 
 
 def _at(buf, pos):
@@ -176,8 +179,10 @@ def block_cap(device) -> int:
 def run_block(p, o: int, B: int, wb: _WaveBuffers, qpack, dbpack,
               device) -> dict:
     """Pairs o .. o + B - 1 of the wave through expansion, the ungapped
-    kernel and the threshold: `_thresh_core`'s host columns."""
+    kernel and the threshold on `device`, from its copies of the packs and
+    candidates: `_thresh_core`'s host columns."""
     d = p.min_accessible_length
+    wb, qpack, dbpack = wb.at(device), qpack.at(device), dbpack.at(device)
     with prof.stage("ris.fused.expand", device):
         hits = _expand_core(d, p.max_seed_length, o, B, wb, qpack, dbpack)
     with prof.stage("ris.fused.ungapped", device):
@@ -190,19 +195,28 @@ def run_block(p, o: int, B: int, wb: _WaveBuffers, qpack, dbpack,
         return _thresh_core(p, res, hits)
 
 
-def fused_stage(p, cands, qpack, dbpack, *, device,
+def fused_stage(p, cands, qpack, dbpack, *, devices,
                 block: int | None = None) -> pl.HitStream:
     """Post-threshold HitStream of a wave's seed candidates (`cands` from
     search/seed.py:seed_candidates): the stream pipeline.seed_stage ->
     ungapped_stage -> threshold_stage gives, one device pass per block of
-    `block` pairs (default: block_cap)."""
-    with prof.stage("ris.fused.pack", device):
-        wb = _WaveBuffers(cands, qpack, dbpack, device)
+    `block` pairs (default: the least block_cap of `devices`). Each block
+    is split over `devices` (one device or a list; dist.split_rows) into
+    contiguous sub-blocks, each run on its device and thread; the parts
+    join in shard order, so pair ids stay ascending."""
+
+    devices = dist.device_list(devices)
+    with prof.stage("ris.fused.pack", devices):
+        wb = _WaveBuffers(cands, qpack, dbpack, devices)
     if block is None:
-        block = block_cap(device)
-    parts = [run_block(p, o, min(block, wb.tot - o), wb, qpack, dbpack,
-                       device)
-             for o in range(0, wb.tot, block)]
+        block = min(block_cap(dev) for dev in dist.distinct(devices))
+    parts = []
+    for o in range(0, wb.tot, block):
+        rows = dist.split_rows(min(block, wb.tot - o), len(devices))
+        parts += dist.run_sharded(
+            lambda dev, lo, n: run_block(p, lo, n, wb, qpack, dbpack, dev),
+            [(dev, o + lo, hi - lo)
+             for dev, (lo, hi) in zip(devices, rows) if hi > lo])
     empty = {**{k: np.zeros(0, np.int32) for k in (*uop.INT_KEYS,
                                                      "dbseq_id")},
              **{k: np.zeros(0, np.float32) for k in uop.FLOAT_KEYS},

@@ -7,7 +7,9 @@ accessible length) from the ``.bas`` file rather than flags — a real coupling
 the search must keep (src/rna_interaction_search_parameters.cpp:97-114).
 
 ``engine`` picks the exact host engine or the PyTorch device engine
-(``gpu``); ``device`` names the torch device the ``gpu`` engine runs on.
+(``gpu``); ``device`` names the kind of torch device the ``gpu`` engine
+runs on: ``cuda`` (every card the process owns,
+parallel/dist.py:local_devices) or ``cpu``.
 """
 
 from __future__ import annotations
@@ -76,25 +78,3 @@ class RisParams:
         h, r, w, d = struct.unpack("<4i", bas.read_bytes()[:16])
         self.hash_size, self.repeat_flag = h, r
         self.maximal_span, self.min_accessible_length = w, d
-
-
-def resolve_device(engine: str, device: str, pidx: int = 0):
-    """The torch device the ``gpu`` engine runs on. Asking for ``cuda``
-    on a machine without a card is an error, never a silent switch to the
-    exact engine or to the CPU. With several processes on one host, process
-    ``pidx`` takes card ``pidx`` modulo the cards there: one process per
-    card, and processes share the cards when there are more of them."""
-    import torch
-
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}")
-    if device not in DEVICES:
-        raise ValueError(f"unknown device {device!r}")
-    if device == "cpu":
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "--engine gpu needs a CUDA device and none is available; "
-            "pass --device cpu to run the device engine on the CPU, or "
-            "--engine exact for the host engine")
-    return torch.device("cuda", pidx % torch.cuda.device_count())

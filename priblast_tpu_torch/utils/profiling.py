@@ -1,15 +1,17 @@
 """Stage timing and profiling hooks.
 
-Every pipeline stage can be timed with ``stage(name, device)``; a summary
-is printed when PRIBLAST_TIMINGS=1. On a CUDA device the stage
-synchronises before reading the clock on each side, so the time covers
-the device work the stage queued and not only its launches.
+Every pipeline stage can be timed with ``stage(name, devices)``; a summary
+is printed when PRIBLAST_TIMINGS=1. On CUDA devices the stage
+synchronises every card of the list before reading the clock on each
+side, so the time covers the device work the stage queued on all of its
+shards and not only its launches.
 ``device_trace(name)`` wraps a block in a ``torch.profiler`` trace
 (exported as a Chrome trace) when PRIBLAST_TRACE_DIR is set.
 
 Stages may run on several threads at once (the ris router's hybrid split
-runs the host and device chains side by side): the sums are kept under a
-lock, and then the stage seconds of the two sides overlap, so they do not
+runs the host and device chains side by side, and each shard of a split
+device stage runs on a thread of its own): the sums are kept under a
+lock, and then the stage seconds of the threads overlap, so they do not
 add up to the wall time.
 """
 
@@ -30,21 +32,31 @@ def enabled() -> bool:
     return os.environ.get("PRIBLAST_TIMINGS", "") not in ("", "0")
 
 
-def _sync(device) -> None:
-    if device is not None and getattr(device, "type", device) == "cuda":
-        import torch
+def _sync(devices) -> None:
+    """Wait for every card of `devices` (one device or a list; None for
+    none)."""
+    if devices is None:
+        return
+    import torch
 
-        torch.cuda.synchronize(device)
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    for dev in dict.fromkeys(torch.device(d) for d in devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 @contextlib.contextmanager
-def stage(name: str, device=None):
-    _sync(device)
+def stage(name: str, devices=None):
+    """Time the block as stage `name`; on the cards of `devices` (one
+    device or a list) the clock is read after each of them has finished
+    its queued work, so a split stage covers all of its shards."""
+    _sync(devices)
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        _sync(device)
+        _sync(devices)
         dt = time.perf_counter() - t0
         with _lock:
             _times[name] += dt

@@ -98,7 +98,7 @@ def test_outputs_match_jax_and_exact(tiny_batch, dtype, tol):
     seqs, codes, lens, exact = tiny_batch
     ja, jc = jb.BatchedRaccess(W_SPAN, D, dtype=dtype).run(codes, lens)
     pa, pc = tb.BatchedRaccess(W_SPAN, D, dtype=dtype,
-                               device="cpu").run(codes, lens)
+                               devices="cpu").run(codes, lens)
     assert pa.dtype == np.float32 and pa.shape == ja.shape
     assert np.abs(pa - ja).max() <= tol
     assert np.abs(pc - jc).max() <= tol
@@ -132,7 +132,7 @@ def test_long_sequence_log_space_branch():
         A = tb.inside_pass(t, g, n, W_SPAN + 2, 1, torch.float64)[6]
     assert float(A[n, 0]) > 690
     acc, cond = tb.BatchedRaccess(W_SPAN, D, dtype="float64",
-                                  device="cpu").run(codes[None, :],
+                                  devices="cpu").run(codes[None, :],
                                                     np.array([n]))
     da = np.abs(acc[0] - ra)
     dc = np.abs(cond[0] - rc)

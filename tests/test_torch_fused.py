@@ -73,7 +73,7 @@ def test_fused_stage_matches_native_stage2(staged):
     its extension float32 whatever the device engine's dtype, so the JAX
     test's float32/float64 cases are one here."""
     _chunks, p, _queries, qpack, dbpack, _pres, posts, cands = staged
-    stream = fused.fused_stage(p, cands, qpack, dbpack, device=CPU)
+    stream = fused.fused_stage(p, cands, qpack, dbpack, devices=CPU)
     assert len(stream) > 0
     thr = p.interaction_energy_threshold
     assert len(stream.groups) == len(posts)
@@ -103,7 +103,7 @@ def test_fused_stage_matches_jax_fused_stage(staged):
                        [q[1] for q in queries])
     jd = jpl.DbPack(chunks)
     ref = jfused.fused_stage(p, cands, jq, jd, dtype="float64")
-    got = fused.fused_stage(p, cands, qpack, dbpack, device=CPU)
+    got = fused.fused_stage(p, cands, qpack, dbpack, devices=CPU)
     assert len(got) > 0 and got.groups == ref.groups
     for k in INT_KEYS:
         assert np.array_equal(got.soa[k], np.asarray(ref.soa[k])), k
@@ -117,7 +117,7 @@ def test_fused_stream_equals_staged_stream(staged):
     ungapped_stage -> threshold_stage) are the same stream: groups, and
     every field identical in value and dtype."""
     _chunks, p, _queries, qpack, dbpack, pres, _posts, cands = staged
-    got = fused.fused_stage(p, cands, qpack, dbpack, device=CPU)
+    got = fused.fused_stage(p, cands, qpack, dbpack, devices=CPU)
     ref = stream_of(pres, qpack, dbpack)
     tpl.ungapped_stage(ref, qpack, dbpack, p, device=CPU)
     ref = tpl.threshold_stage(ref, p)
@@ -135,9 +135,9 @@ def test_small_pair_blocks_give_the_same_stream(staged):
     _chunks, p, _queries, qpack, dbpack, _pres, _posts, cands = staged
     wb = fused._WaveBuffers(cands, qpack, dbpack, CPU)
     assert int(torch.diff(wb.cum).max()) > 2 * 4
-    one = fused.fused_stage(p, cands, qpack, dbpack, device=CPU,
+    one = fused.fused_stage(p, cands, qpack, dbpack, devices=CPU,
                             block=wb.tot)
-    small = fused.fused_stage(p, cands, qpack, dbpack, device=CPU,
+    small = fused.fused_stage(p, cands, qpack, dbpack, devices=CPU,
                               block=4)
     assert len(one) > 0 and small.groups == one.groups
     for k in tpl.STREAM_KEYS:
@@ -148,14 +148,14 @@ def test_fused_stage_without_pairs_or_survivors(staged):
     """A wave with no candidates, and groups whose candidates all fail the
     filter, keep their (empty) groups in order."""
     _chunks, p, _queries, qpack, dbpack, _pres, _posts, cands = staged
-    none = fused.fused_stage(p, [], qpack, dbpack, device=CPU)
+    none = fused.fused_stage(p, [], qpack, dbpack, devices=CPU)
     assert len(none) == 0 and none.groups == []
     weak = [(g, {**c, "hyb_e": np.full_like(c["hyb_e"], 1e3)})
             for g, c in cands[:2]] + cands[2:3]
-    stream = fused.fused_stage(p, weak, qpack, dbpack, device=CPU)
+    stream = fused.fused_stage(p, weak, qpack, dbpack, devices=CPU)
     assert [g[2:] for g in stream.groups[:2]] == [(0, 0), (0, 0)]
     assert stream.groups[2][:2] == cands[2][0]
-    alone = fused.fused_stage(p, cands[2:3], qpack, dbpack, device=CPU)
+    alone = fused.fused_stage(p, cands[2:3], qpack, dbpack, devices=CPU)
     assert len(alone) > 0 and len(stream) == len(alone)
     for k in tpl.STREAM_KEYS:
         assert stream.soa[k].dtype == alone.soa[k].dtype

@@ -200,8 +200,8 @@ def test_gapped_tie_rule_on_periodic_sequences(tmp_path, monkeypatch):
     mids = _mids(queries, chunks[0], p, posts)
     qpack = tpl.QueryPack([q[0] for q in queries], [q[2] for q in queries],
                           [q[3] for q in queries], [q[1] for q in queries],
-                          device=CPU)
-    dbpack = tpl.DbPack(chunks, device=CPU)
+                          devices=CPU)
+    dbpack = tpl.DbPack(chunks, devices=CPU)
     stream = stream_of(mids, qpack, dbpack)
     assert len(stream) >= 8
     mb = dict(queries=queries, chunks=chunks, p=p, qpack=qpack,

@@ -77,8 +77,8 @@ def test_sweep_kernel_matches_plain_version_on_the_card(tiny_mids, dtype,
     chunks, queries, mids, _pres = tiny_mids
     qpack = tpl.QueryPack([q[0] for q in queries], [q[2] for q in queries],
                           [q[3] for q in queries], [q[1] for q in queries],
-                          device=dev)
-    dbpack = tpl.DbPack(chunks, device=dev)
+                          devices=dev)
+    dbpack = tpl.DbPack(chunks, devices=dev)
     stream = tpl._concat_groups(mids, [(q, 0) for q in range(len(mids))])
     tpl._hit_bases(stream, qpack, dbpack)
     calls = []
@@ -114,8 +114,8 @@ def test_ungapped_kernel_matches_plain_version_on_the_card(tiny_mids,
     chunks, queries, _mids, pres = tiny_mids
     qpack = tpl.QueryPack([q[0] for q in queries], [q[2] for q in queries],
                           [q[3] for q in queries], [q[1] for q in queries],
-                          device=dev)
-    dbpack = tpl.DbPack(chunks, device=dev)
+                          devices=dev)
+    dbpack = tpl.DbPack(chunks, devices=dev)
     stream = tpl._concat_groups(pres, [(q, 0) for q in range(len(pres))])
     tpl._hit_bases(stream, qpack, dbpack)
 
@@ -152,8 +152,8 @@ def test_ungapped_kernel_on_a_mixed_batch_on_the_card(tiny_mids):
     cpu = torch.device("cpu")
     qpack = tpl.QueryPack([q[0] for q in queries], [q[2] for q in queries],
                           [q[3] for q in queries], [q[1] for q in queries],
-                          device=cpu)
-    dbpack = tpl.DbPack(chunks, device=cpu)
+                          devices=cpu)
+    dbpack = tpl.DbPack(chunks, devices=cpu)
     stream = tpl._concat_groups(pres, [(q, 0) for q in range(len(pres))])
     tpl._hit_bases(stream, qpack, dbpack)
     tiny = uc.stage1_part(stream.soa, qpack.bufs, dbpack.bufs)
@@ -209,7 +209,7 @@ def test_accessibility_does_not_depend_on_the_batch_on_the_card(dtype):
     rng = np.random.default_rng(7)
     lens = [int(x) for x in rng.integers(380, 500, 3)]
     seqs = ["".join(rng.choice(list("ACGU"), n)) for n in lens]
-    engine = ab.BatchedRaccess(70, 5, dtype=dtype, device=dev)
+    engine = ab.BatchedRaccess(70, 5, dtype=dtype, devices=dev)
     got = []
     for B, n_max in ((8, 512), (16, 768)):
         others = ["".join(rng.choice(list("ACGU"), int(n)))
@@ -249,6 +249,19 @@ def _extend_args(B=3, n=40):
     bufs += [torch.zeros(n, dtype=torch.float32) for _ in range(4)]
     args = (*cols, *energy, torch.ones(B, dtype=torch.bool), *bases, *bufs)
     return list(args), dict(flag=0, d=5, dropout=4, min_helix=3, max_ext=8)
+
+
+@pytest.mark.gpu
+def test_several_shards_on_the_card_match_one():
+    """The dry run of several devices in one process with two shards on
+    the one card: the split accessibility batch and the split device chain
+    equal one device's, bit for bit, energies included."""
+    from priblast_tpu_torch.parallel import dist
+
+    dev = dist.device_list(_card())[0]
+    out = dist.dryrun_multichip([dev, dev])
+    assert out["exact"] and out["hits"] > 0
+    assert out["acc_diff"] == out["energy_diff"] == 0.0
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "max_ext"])

@@ -96,8 +96,8 @@ def tiny_hits(tmp_path_factory):
                                    stage=2)
         mids.append(native.chain_mid(q_enc, chunks[0], p, post))
     cpu = torch.device("cpu")
-    qpack = tpl.QueryPack(*zip(*queries), device=cpu)
-    dbpack = tpl.DbPack(chunks, device=cpu)
+    qpack = tpl.QueryPack(*zip(*queries), devices=cpu)
+    dbpack = tpl.DbPack(chunks, devices=cpu)
     stream = tpl._concat_groups(mids, [(q, 0) for q in range(len(mids))])
     tpl._hit_bases(stream, qpack, dbpack)
     soa = {k: torch.as_tensor(v[:N_HITS]).long()

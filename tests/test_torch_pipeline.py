@@ -63,7 +63,7 @@ def test_search_all_matches_native_chain(staged, max_ext):
     tpl.ungapped_stage(stream, qpack, dbpack, p, device=CPU)
     stream = tpl.threshold_stage(stream, p)
     stream, finished = tpl.finish_search(
-        stream, p, chunks, queries, qpack, dbpack, device=CPU,
+        stream, p, chunks, queries, qpack, dbpack, devices=CPU,
         dtype="float64", max_ext=max_ext)
     _check_against_native_chain(chunks, p, queries, stream, finished,
                                 max_ext)
@@ -76,7 +76,7 @@ def test_search_all_fused_matches_native_chain(staged, max_ext):
     chunks, p, queries, qpack, dbpack, _pres, _posts = staged
     prof.reset()
     stream, finished = tpl.search_all(p, chunks, queries, qpack, dbpack,
-                                      device=CPU, dtype="float64",
+                                      devices=CPU, dtype="float64",
                                       max_ext=max_ext)
     _check_against_native_chain(chunks, p, queries, stream, finished,
                                 max_ext)

@@ -109,8 +109,11 @@ def test_calibration_updates_rates(rt):
 
 # ---- parity with the JAX package's router --------------------------------
 
+@pytest.mark.parametrize("n_dev", [1, 2, 8])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_split_and_choice_match_the_jax_router(monkeypatch, seed):
+def test_split_and_choice_match_the_jax_router(monkeypatch, seed, n_dev):
+    """The device count enters both routers as the JAX package's mesh size
+    does (ris_tpu.py:216): 1, 2 and 8 devices."""
     rng = np.random.default_rng(seed)
     for _ in range(40):
         rates = dict(HOST_PAIR_RATE=float(rng.uniform(1e4, 1e6)),
@@ -131,7 +134,7 @@ def test_split_and_choice_match_the_jax_router(monkeypatch, seed):
         # ties and empty queries included
         pairs = {q: int(rng.choice([0, 1000, int(rng.integers(1, 10**7))]))
                  for q in range(n_q)}
-        threads, n_dev = int(rng.integers(1, 33)), int(rng.integers(1, 5))
+        threads = int(rng.integers(1, 33))
         assert (ris_gpu.split_wave(pairs, threads, n_dev)
                 == ris_tpu.split_wave(pairs, threads, n_dev))
         n = int(rng.integers(0, 10**9))
@@ -281,7 +284,7 @@ def test_a_device_failure_ends_the_run(data_dir, golden_dir, monkeypatch,
     results = [None] * len(seqs)
     with pytest.raises(RuntimeError, match="device side failed"):
         ris_gpu.run_queries(p, chunks, names, seqs, order, results,
-                            device=torch.device("cpu"), threads=2)
+                            devices=torch.device("cpu"), threads=2)
     n_host = 1 if mode == "hybrid" else 0
     assert len(host_calls) == n_host * len(chunks)
     if n_host:

@@ -55,8 +55,8 @@ def build_staged(tmp, data_dir):
                                          chunks[0], p, stage=2))
     qpack = tpl.QueryPack([q[0] for q in queries], [q[2] for q in queries],
                           [q[3] for q in queries], [q[1] for q in queries],
-                          device=CPU)
-    dbpack = tpl.DbPack(chunks, device=CPU)
+                          devices=CPU)
+    dbpack = tpl.DbPack(chunks, devices=CPU)
     return chunks, p, queries, qpack, dbpack, pres, posts
 
 
