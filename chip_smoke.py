@@ -21,7 +21,11 @@ Phases (any failure ends the run with a non-zero exit code):
      accessibility runs the two scan kernels; the four kernels'
      launch counts, the stage seconds (`ris.fused` split into its
      synchronised sub-stages), the peak device memory, and the mid stage's
-     seconds and CPU seconds are read around that run;
+     seconds and CPU seconds are read around that run; then the gapped
+     kernel's overflow: the hits past max_ext, the host fallback's seconds
+     by part (its native calls summed over its threads, which run beside
+     the next hit batches; the wait for them after the last batch; its
+     vectorised patch), its threads, and the sha256 of the `ris` body;
   4. the device chain against the port's host chain (native search per
      query on the same device-computed accessibilities), and against
      `--engine exact` (the churn of the float32 device engine); the mid
@@ -34,26 +38,34 @@ Phases (any failure ends the run with a non-zero exit code):
      (seed_stage -> ungapped_stage -> threshold_stage) against the fused
      stage on the first 20 queries, same packs and accessibilities:
      identical post-threshold streams;
-  4f. router: the five rates of the ris router (models/ris_gpu.py) from
+  4f. fallback: the gapped stage's host overflow fallback again on the
+     main path's overflowed hits, at one thread with every flag at once,
+     and at the main path's thread count in the main path's hit batches:
+     the same stream fields and base pairs;
+  4g. router: the five rates of the ris router (models/ris_gpu.py) from
      the main path and the host chain on this host: pairs per host thread
      and second, device pairs per second of seed + fused, hits after the
      mid stage per pair, device hits per second of mid + gapped + finish,
      and the device chain's wall on a one-query wave;
-  4g. host-extend: `ris` with PRIBLAST_DEVICE_EXTEND=0 (device
+  4h. host-extend: `ris` with PRIBLAST_DEVICE_EXTEND=0 (device
      accessibility, then the host chain): its body equals phase 4a's host
      chain byte for byte, and no extension kernel runs;
-  4h. hybrid: `ris` with the router in auto and its hybrid split on
-     (forced with PRIBLAST_HYBRID=1 on a host of fewer than 4 threads):
-     per wave, each side's queries, pairs and wall, the rates before and
-     after calibration, q/s; the split equals split_wave recomputed from
-     the printed pairs and rates, the extension kernels ran if and only if
-     the device side had queries, and the body agrees with the main
-     path's as the device chain agrees with the host chain;
-  4i. multiproc: two processes of `python -m priblast_tpu_torch` on this
+  4i. hybrid: `ris` with the router in auto and its hybrid split forced
+     on (PRIBLAST_HYBRID=1; its default keeps the hybrid off where the
+     device chain alone wins): per wave, each side's queries, pairs and
+     wall, the rates before and after calibration, q/s; the split equals
+     split_wave recomputed from the printed pairs and rates, the extension
+     kernels ran if and only if the device side had queries, and the body
+     agrees with the main path's as the device chain agrees with the host
+     chain; then `ris` in the router's defaults: per wave the chains it
+     chose (every query to the device chain where device_extend_wins says
+     it wins alone), the wall, and the body against the main path's as
+     above, with its sha256;
+  4j. multiproc: two processes of `python -m priblast_tpu_torch` on this
      card (torch.distributed, gloo): `db --engine gpu -a block`, then
      `ris --engine gpu -a area` on the device chain; the db files and the
      ris body byte for byte against the main path's;
-  4j. multidev: several devices in one process: `db` and `ris` (device
+  4k. multidev: several devices in one process: `db` and `ris` (device
      chain) of the main path's workload through their Python entry points
      with `devices` = every card, or [cuda:0, cuda:0] on a machine of one
      card (two shards on the card, each on its own thread); the db files
@@ -209,6 +221,15 @@ def compare_lines(ref: list[str], got: list[str]):
 
 def body(path: Path) -> list[str]:
     return path.read_text().splitlines()[3:]
+
+
+def body_sha256(path: Path) -> str:
+    """sha256 of an output's body: its lines after the three header
+    lines, each ended by a newline."""
+    import hashlib
+
+    return hashlib.sha256("".join(line + "\n" for line in body(path))
+                          .encode()).hexdigest()
 
 
 def free_port() -> int:
@@ -606,6 +627,9 @@ def main() -> int:
     acc_devices, q_access, mid_streams, mid_runs = set(), {}, [], []
     access_batches = []     # (codes, lengths) of every accessibility batch
     first_sweep, first_ungapped, first_fused = [], [], []
+    # the overflow fallback's submitted batches and its inputs at the patch;
+    # the gapped stage's threads
+    submits, fallbacks, gapped_threads = [], [], []
     run0 = batched.BatchedRaccess.run
     access0 = ris_gpu._accessibility_batched
     gstage0 = pipeline.gapped_stage
@@ -613,6 +637,8 @@ def main() -> int:
     ukernel = uop.ungapped_extend
     fstage0 = fused.fused_stage
     mid0 = pipeline.mid_stage
+    fb_submit0 = pipeline.OverflowFallback.submit
+    fb_patch0 = pipeline.OverflowFallback.patch
 
     def run_rec(self, codes, lengths):
         acc_devices.update(str(d) for d in self.devices)
@@ -626,7 +652,18 @@ def main() -> int:
 
     def gstage_rec(stream, *a, **k):
         mid_streams.append({key: v.copy() for key, v in stream.soa.items()})
+        gapped_threads.append(k.get("threads"))
         return gstage0(stream, *a, **k)
+
+    def fb_submit_rec(self, overflow, start=0):
+        submits.append((self, start, overflow.copy()))
+        return fb_submit0(self, overflow, start)
+
+    def fb_patch_rec(self, segments):
+        fallbacks.append((self, pipeline.HitStream(
+            {key: v.copy() for key, v in self.stream.soa.items()},
+            list(self.stream.groups)), segments))
+        return fb_patch0(self, segments)
 
     def sweep_rec(*a, **k):
         if not first_sweep:
@@ -656,6 +693,8 @@ def main() -> int:
     uop.ungapped_extend = ungapped_rec
     fused.fused_stage = fstage_rec
     pipeline.mid_stage = mid_rec
+    pipeline.OverflowFallback.submit = fb_submit_rec
+    pipeline.OverflowFallback.patch = fb_patch_rec
 
     db_gpu, out_gpu = work / "db_gpu", work / "ris_gpu.txt"
     # the main path is the device chain: the router's default, auto, may
@@ -685,6 +724,8 @@ def main() -> int:
     uop.ungapped_extend = ukernel
     fused.fused_stage = fstage0
     pipeline.mid_stage = mid0
+    pipeline.OverflowFallback.submit = fb_submit0
+    pipeline.OverflowFallback.patch = fb_patch0
 
     check(acc_devices == {"cuda:0"}, f"accessibility ran on {acc_devices}")
     check("ris.fused.ungapped" in stages,
@@ -715,6 +756,19 @@ def main() -> int:
     print("[main] stage seconds " + json.dumps(
         {k: round(v, 4) for k, v in sorted(stages.items())}) + f" {tag}",
         flush=True)
+    n_gapped = sum(len(ms["q_sp"]) for ms in mid_streams)
+    n_over = sum(int(np.count_nonzero(f[2])) for f in submits)
+    main_sha = body_sha256(out_gpu)
+    fb_s = {k: stages.get(f"ris.gapped.{k}", 0.0)
+            for k in ("rerun", "rerun_wait", "patch")}
+    print(f"[main] gapped overflow: {n_over} of {n_gapped} gapped hits past "
+          f"max_ext ({n_over / max(n_gapped, 1):.4%}); host fallback: native "
+          f"calls {fb_s['rerun']:.4f} s summed over a pool of "
+          f"{submits[0][0].workers} threads (ris threads {gapped_threads}) "
+          f"beside the next hit batches, then a wait of "
+          f"{fb_s['rerun_wait']:.4f} s and a patch of {fb_s['patch']:.4f} s "
+          f"(no per-hit loop), in ris.gapped {stages['ris.gapped']:.4f} s; "
+          f"ris body sha256 {main_sha} {tag}", flush=True)
 
     # ---- 4a. device chain vs the port's host chain on the same
     # device-computed accessibilities
@@ -845,7 +899,49 @@ def main() -> int:
           f"{len(s_fu.groups)} groups, all fields); staged {t_st:.3f}s, "
           f"seed DFS + fused stage {t_fu:.3f}s {tag}", flush=True)
 
-    # ---- 4f. the router's rates, from the main path (device chain) and
+    # ---- 4f. the overflow fallback at one thread (every flag at once)
+    # and at the main path's thread count (in its hit batches), on the main
+    # path's overflowed hits
+    check(len(fallbacks) >= 1 and n_over > 0,
+          "the main path sent no hit to the overflow fallback")
+    fb_main, f_stream, f_segs = fallbacks[0]
+    f_batches = [(start, flags) for obj, start, flags in submits
+                 if obj is fb_main]
+    f_threads = gapped_threads[0]
+    outs = {}
+    for th in (1, f_threads):
+        st = pipeline.HitStream({key: v.copy() for key, v in
+                                 f_stream.soa.items()}, f_stream.groups)
+        t0 = time.perf_counter()
+        with pipeline.OverflowFallback(st, fb_main.chunks, fb_main.queries,
+                                       fb_main.p, th) as fb:
+            if th == 1:
+                fb.submit(np.concatenate([f for _, f in f_batches]))
+            else:
+                for start, flags in f_batches:
+                    fb.submit(flags, start)
+            bps = pipeline.assemble_bps(fb.patch(f_segs))
+        outs[th] = (st, bps, time.perf_counter() - t0)
+    (s1, b1, t1), (sn, bn, tn) = outs[1], outs[f_threads]
+    for key in pipeline.STREAM_KEYS:
+        check(s1.soa[key].dtype == sn.soa[key].dtype
+              and np.array_equal(s1.soa[key], sn.soa[key]),
+              f"fallback at 1 and {f_threads} threads: {key} differs")
+    for key in ("bp_off", "bp_q", "bp_db"):
+        check(np.array_equal(b1[key], bn[key]),
+              f"fallback at 1 and {f_threads} threads: {key} differs")
+    print(f"[fallback] {sum(int(np.count_nonzero(f)) for _, f in f_batches)}"
+          f" overflowed of {len(s1)} hits of the main path's first wave: 1 "
+          f"thread, every flag at once, {t1:.4f} s; {f_threads} threads (a "
+          f"pool of {fb_main.workers}), in "
+          f"the main path's {len(f_batches)} hit batches, {tn:.4f} s (native "
+          f"calls, patch and assembly); stream fields and base pairs "
+          f"({len(b1['bp_q'])} pairs) identical {tag}", flush=True)
+    fallbacks.clear()
+    submits.clear()
+    del outs, s1, b1, sn, bn
+
+    # ---- 4g. the router's rates, from the main path (device chain) and
     # the host chain of phase 4a, on this host
     post_mid = sum(len(ms["q_sp"]) for ms in mid_streams)
     q1 = order[-1]                      # the shortest query: a small wave
@@ -877,7 +973,7 @@ def main() -> int:
           + ", ".join(f"{w:.4f}" for w in walls) + f" s; host cores {cores} "
           f"(affinity {affinity}) {tag}", flush=True)
 
-    # ---- 4g. ris with the host chain on device accessibilities
+    # ---- 4h. ris with the host chain on device accessibilities
     def run_ris(mode: str, out: Path) -> float:
         """`ris` in router mode `mode`, with every launch count set to 0
         just before it (read just after by the caller)."""
@@ -913,10 +1009,10 @@ def main() -> int:
           "an extension kernel ran with PRIBLAST_DEVICE_EXTEND=0")
     scans_ran("host-extend")
 
-    # ---- 4h. ris with the hybrid split
-    forced = min(32, cores or 1) < 4
-    if forced:
-        os.environ["PRIBLAST_HYBRID"] = "1"
+    # ---- 4i. ris with the hybrid split (forced: the router's default
+    # keeps it off where the device chain alone wins), then ris in the
+    # router's default
+    os.environ["PRIBLAST_HYBRID"] = "1"
     splits = []
     split0, cal0 = ris_gpu.split_wave, ris_gpu._calibrate
 
@@ -969,16 +1065,52 @@ def main() -> int:
     scans_ran("hybrid")
     frac, matched, de = compare_lines(gpu_lines, body(out_hyb))
     print(f"[hybrid] ris {N_Q} queries in {t_hy:.3f}s = {N_Q / t_hy:.4f} q/s "
-          f"({'PRIBLAST_HYBRID=1: fewer than 4 threads' if forced else 'auto'}"
-          f"); kernel launches ungapped {uop.launches}, gapped "
+          f"(PRIBLAST_HYBRID=1); kernel launches ungapped {uop.launches}, gapped "
           f"{gapped_sweep.launches}; against the main path {matched}/"
           f"{len(gpu_lines)} lines agree ({frac:.6f}), max energy diff "
           f"{de:.3g} kcal/mol {tag}", flush=True)
     check(frac >= 0.999, f"hybrid/main agreement {frac} < 0.999")
     check(de <= 1e-3, f"hybrid/main energy diff {de} > 1e-3")
+
+    # the router's default (PRIBLAST_HYBRID unset): per wave the chains it
+    # chose, against device_extend_wins on the wave's pairs
+    routes = []
+    route0 = ris_gpu.route
+
+    def route_rec(p_, chunks_, queries_, mode, devices, threads_):
+        out = route0(p_, chunks_, queries_, mode, devices, threads_)
+        n = sum(out[3].values())
+        routes.append(dict(host=len(out[0]), dev=len(out[1]), pairs=n,
+                           dev_wins=ris_gpu.device_extend_wins(
+                               n, threads_, len(dist.distinct(devices)))))
+        return out
+
+    ris_gpu._CAL.update(host=None, dev=None)
+    ris_gpu.route = route_rec
+    out_def = work / "ris_default.txt"
+    try:
+        t_def = run_ris("auto", out_def)
+    finally:
+        ris_gpu.route = route0
+    check(len(routes) >= 1, "the router never ran in its default")
+    for wi, r in enumerate(routes):
+        check(not r["dev_wins"] or r["host"] == 0,
+              f"default wave {wi}: the device chain wins alone, yet the "
+              f"host chain took {r['host']} queries")
+    frac, matched, de = compare_lines(gpu_lines, body(out_def))
+    def_sha = body_sha256(out_def)
+    print(f"[default] ris with the router's defaults: {N_Q} queries in "
+          f"{t_def:.3f}s = {N_Q / t_def:.4f} q/s; waves "
+          f"{json.dumps(routes)}; against the main path {matched}/"
+          f"{len(gpu_lines)} lines agree ({frac:.6f}), max energy diff "
+          f"{de:.3g} kcal/mol, body sha256 {def_sha} "
+          f"({'equal to' if def_sha == main_sha else 'not'} the main "
+          f"path's) {tag}", flush=True)
+    check(frac >= 0.999, f"default/main agreement {frac} < 0.999")
+    check(de <= 1e-3, f"default/main energy diff {de} > 1e-3")
     os.environ["PRIBLAST_DEVICE_EXTEND"] = "1"
 
-    # ---- 4i. two processes on this card
+    # ---- 4j. two processes on this card
     mp = work / "mp"
     mp.mkdir(exist_ok=True)
 
@@ -1042,7 +1174,7 @@ def main() -> int:
           f"two-process db files differ from one process's: {diffs}")
     check(n_diff == 0, f"two-process ris body differs on {n_diff} lines")
 
-    # ---- 4j. several devices in one process
+    # ---- 4k. several devices in one process
     n_cards = torch.cuda.device_count()
     devs = ([torch.device("cuda", i) for i in range(n_cards)]
             if n_cards >= 2 else [torch.device("cuda", 0)] * 2)

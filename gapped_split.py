@@ -4,20 +4,27 @@
     python3 gapped_split.py [--seed 0] [--reps 10] [--out FILE]
 
 Builds chip_smoke.py's workload (100 queries of ~1,000 nt against 20 db
-sequences of ~5,000 nt, from --seed), runs `db` and `ris` of this
-checkout's priblast_tpu_torch on cuda, and splits `ris.gapped` with
-synchronised host clocks into:
+sequences of ~5,000 nt, from --seed), runs `db` and `ris` (the device
+chain) on cuda, and splits `ris.gapped` with synchronised host clocks
+into:
   - device work of each direction (`search/gapped.py:_extend_dir`), and
     inside it the time before, in and after the kernel's wrapper
     (`ops/gapped_sweep.py:gapped_extend_dir`);
   - D2H and per-hit coordinates (`gapped_extend_flat_batch` around
     `gapped_extend_both`);
-  - the host engine's overflow fallback (`pipeline._overflow_fallback`);
+  - the host engine's overflow fallback (`pipeline.OverflowFallback`),
+    with the overflowed hits and the threads: its native `gapped_extend`
+    calls, which run on threads beside the next batches (their seconds
+    summed over the threads, stage `ris.gapped.rerun`), the wait for
+    them after the last batch (`ris.gapped.rerun_wait`) and the patch of
+    the stream and base pairs (`ris.gapped.patch`); the last two are on
+    the stage's path;
   - the rest of `pipeline.gapped_stage` (concatenation and the vectorised
     base-pair assembly).
 Then it times one direction's device work (`_extend_dir`, flag 0) on the
 inputs of the main path's first gapped batch with CUDA events, and lists
-that call's device time by kernel from `torch.profiler`.
+that call's device time by kernel from `torch.profiler`. It also prints
+the sha256 of the `ris` body (the output without its three header lines).
 
 Prints one JSON object as its last line; --out also writes it, with the
 profiler table, to a file.
@@ -86,7 +93,7 @@ def main() -> int:
                             "after_entry", "extend_both", "flat_batch",
                             "overflow_fallback", "gapped_stage")}
     marks, first = {}, []
-    batches = []
+    batches, overflowed, threads_seen = [], [], []
 
     def timed(key, fn, sync=True):
         def run(*a, **k):
@@ -123,33 +130,59 @@ def main() -> int:
         batches.append(len(hits["q_sp"]))
         return timed("flat_batch", flat0)(hits, *a, **k)
 
-    saved = dict(ext=ext0, ent=entry0, both=both0, flat=flat0,
-                 ovf=pipeline._overflow_fallback, gst=pipeline.gapped_stage)
-    gapped._extend_dir = ext_rec
-    sweep_op.gapped_extend_dir = entry_rec
-    gapped.gapped_extend_both = timed("extend_both", both0)
-    gapped.gapped_extend_flat_batch = flat_rec
-    pipeline._overflow_fallback = timed("overflow_fallback", saved["ovf"],
-                                        sync=False)
-    pipeline.gapped_stage = timed("gapped_stage", saved["gst"])
+    # the fallback's parts are stages (ris.gapped.rerun summed over its
+    # threads, .rerun_wait, .patch); its submissions count the overflows
+    sub0 = pipeline.OverflowFallback.submit
+
+    def submit_rec(self, overflow, start=0):
+        overflowed.append(int(np.count_nonzero(overflow)))
+        return sub0(self, overflow, start)
+
+    gst0 = pipeline.gapped_stage
+
+    def gst_rec(*a, **k):
+        threads_seen.append(k.get("threads", 1))
+        return timed("gapped_stage", gst0)(*a, **k)
+
+    patches = [(gapped, "_extend_dir", ext_rec),
+               (sweep_op, "gapped_extend_dir", entry_rec),
+               (gapped, "gapped_extend_both", timed("extend_both", both0)),
+               (gapped, "gapped_extend_flat_batch", flat_rec),
+               (pipeline.OverflowFallback, "submit", submit_rec),
+               (pipeline, "gapped_stage", gst_rec)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
     prof.reset()
     # the device chain (the ris router's default, auto, may send queries
     # to the host chain)
     os.environ["PRIBLAST_DEVICE_EXTEND"] = "1"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cli.main(["ris", "-i", str(work / "q.fa"), "-o", str(work / "ris.txt"),
-              "-d", str(work / "db")])
+    try:
+        cli.main(["ris", "-i", str(work / "q.fa"), "-o",
+                  str(work / "ris.txt"), "-d", str(work / "db")])
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
     t_ris = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     stages = prof.snapshot()
-    gapped._extend_dir = saved["ext"]
-    sweep_op.gapped_extend_dir = saved["ent"]
-    gapped.gapped_extend_both = saved["both"]
-    gapped.gapped_extend_flat_batch = saved["flat"]
-    pipeline._overflow_fallback = saved["ovf"]
-    pipeline.gapped_stage = saved["gst"]
-    n_lines = len((work / "ris.txt").read_text().splitlines()) - 3
+    n_lines = len(cs.body(work / "ris.txt"))
+    body_sha = cs.body_sha256(work / "ris.txt")
+
+    fallback = {"overflowed hits": sum(overflowed),
+                "gapped hits": sum(batches),
+                "threads": threads_seen}
+    wait = stages.get("ris.gapped.rerun_wait", 0.0)
+    patch = stages.get("ris.gapped.patch", 0.0)
+    acc["overflow_fallback"] = wait + patch
+    fallback.update({
+        "native gapped_extend calls, summed over the threads":
+            stages.get("ris.gapped.rerun", 0.0),
+        "their wait after the last batch (not hidden)": wait,
+        "patch": patch,
+        "on the stage's path (wait + patch)": wait + patch})
 
     split = {
         "extend_dir device work (both directions, all batches)":
@@ -161,7 +194,8 @@ def main() -> int:
             acc["extend_both"] - acc["extend_dir"],
         "D2H + per-hit coordinates (flat_batch outside extend_both)":
             acc["flat_batch"] - acc["extend_both"],
-        "overflow fallback (host engine)": acc["overflow_fallback"],
+        "overflow fallback (host engine), on the stage's path":
+            acc["overflow_fallback"],
         "concat + vectorised assembly (rest of gapped_stage)":
             acc["gapped_stage"] - acc["flat_batch"]
             - acc["overflow_fallback"],
@@ -197,6 +231,7 @@ def main() -> int:
 
     rec = dict(card=card, torch=torch.__version__, db_s=t_db, ris_s=t_ris,
                ris_q_per_s=cs.N_Q / t_ris, lines=n_lines,
+               body_sha256=body_sha, fallback=fallback,
                peak_gb_ris=peak_gb, gapped_batches=batches,
                stages=stages, split_s=split,
                one_direction=dict(B=B, dtype=k.get("dtype"),
@@ -211,6 +246,9 @@ def main() -> int:
         out.write_text(json.dumps(rec, indent=1) + "\n\n" + table + "\n")
     for key, v in split.items():
         print(f"[split] {key}: {v:.4f} s ({card})", flush=True)
+    print(f"[fallback] {json.dumps(fallback)} ({card})", flush=True)
+    print(f"[body] ris {n_lines} lines, sha256 {body_sha}; ris {t_ris:.3f} "
+          f"s ({card})", flush=True)
     print(f"[one direction] B={B} {k.get('dtype')} max_ext="
           f"{k.get('max_ext')}: {ms:.4f} ms (CUDA events, {args.reps} reps); "
           f"profiler device sum {dev_total_ms:.4f} ms ({card})", flush=True)

@@ -3,10 +3,11 @@
 Flags mirror the reference CLI (reference: src/main.cpp:36-111,
 src/db_construction_parameters.cpp:32-78,
 src/rna_interaction_search_parameters.cpp:33-95) plus `--engine` to select
-the device engine (`gpu`, the default) or the exact host engine, and
-`--device` to name the torch devices the `gpu` engine runs on (`cuda`, the
-default: every card the process owns, each batch split over them; `cpu`
-runs the same code with the kernels' plain versions).
+the device engine (`gpu`; `auto`, the default, is the same) or the exact
+host engine, and `--device` to name the torch devices the `gpu` engine
+runs on (`cuda`, the default: every card the process owns, each batch
+split over them; `cpu` runs the same code with the kernels' plain
+versions).
 Several processes (PRIBLAST_NUM_PROCS, PRIBLAST_PROC_ID, PRIBLAST_COORD;
 parallel/multihost.py) split the sequences by `-a` and merge through part
 files under `-p`.
@@ -22,7 +23,11 @@ from priblast_tpu_torch.utils.params import (DEVICES, ENGINES, DbParams,
 
 
 def _engine_flags(q) -> None:
-    q.add_argument("--engine", dest="engine", default="gpu", choices=ENGINES)
+    q.add_argument("--engine", dest="engine", default="auto", choices=ENGINES,
+                   help="gpu = the device engine on --device; auto = gpu "
+                        "(never the exact engine: without a card and "
+                        "without --device cpu it fails); exact = the host "
+                        "engine, byte-identical to the reference")
     q.add_argument("--device", dest="device", default="cuda",
                    choices=DEVICES,
                    help="torch devices of the gpu engine: cuda = every "

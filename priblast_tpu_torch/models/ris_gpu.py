@@ -13,7 +13,8 @@ Hit semantics are identical to the exact engine; energies carry the device
 dtype's accumulation noise on the device chain (use --engine exact for
 byte parity). The device work of both (accessibility, and the device
 chain's stages) is split over the process's list of devices
-(parallel/dist.py); the router counts them as the device side's width.
+(parallel/dist.py); the router counts the distinct ones as the device
+side's width.
 
 A failure on the device is not retried on the host: it ends the run.
 """
@@ -42,8 +43,9 @@ def device_extend_mode() -> str:
     accessibility, then the host chain), auto (the default) the router:
     one seed DFS on the host, then the hybrid split of the wave's queries
     over both chains (split_wave), or, under PRIBLAST_HYBRID=0 or where
-    PRIBLAST_HYBRID=auto finds no card or fewer than 4 threads, one
-    winner-take-all choice (device_extend_wins)."""
+    PRIBLAST_HYBRID=auto finds no card, fewer than 4 threads or a wave the
+    device chain alone wins, one winner-take-all choice
+    (device_extend_wins)."""
     v = os.environ.get("PRIBLAST_DEVICE_EXTEND", "auto").lower()
     if v in ("0", "false", "never"):
         return "never"
@@ -52,11 +54,15 @@ def device_extend_mode() -> str:
     return "auto"
 
 
-# The router's rates, measured by chip_smoke.py [router] on the smoke
-# workload (bench.py's size, one wave of 100 queries, 12,681,462 candidate
-# pairs) on an NVIDIA H100 80GB HBM3, 700.00 W, whose host has 8 cores
-# (os.cpu_count() and the affinity mask both 8); a candidate pair is one of
-# the products of a seed candidate's two suffix-array interval sizes:
+# The router's rates, from the [router] line of chip_smoke.py run from a
+# `git archive` of a tree that differed from this one only in these five
+# numbers and in comments (the gapped stage's overflow re-runs on a pool
+# of threads - 1 beside its hit batches): the smoke workload (bench.py's
+# size, one wave of 100 queries, 12,681,462 candidate pairs, 1,249,785
+# hits after the mid stage) on an NVIDIA H100 80GB HBM3, 700.00 W, whose
+# host has 8 cores (os.cpu_count() and the affinity mask both 8); a
+# candidate pair is one of the products of a seed candidate's two
+# suffix-array interval sizes:
 # - HOST_PAIR_RATE: pairs / (host chain wall x its 8 threads), per thread;
 # - DEV_PAIR_RATE: pairs / (ris.seed + ris.fused) of the device chain;
 # - HIT_DENSITY: hits after the mid stage / pairs;
@@ -66,11 +72,11 @@ def device_extend_mode() -> str:
 #   shortest query; the median of three).
 # Each may be set from the environment (PRIBLAST_<NAME>); the hybrid split
 # recalibrates both sides' rates from their walls after every wave.
-HOST_PAIR_RATE = float(os.environ.get("PRIBLAST_HOST_PAIR_RATE", 1.766e5))
-DEV_PAIR_RATE = float(os.environ.get("PRIBLAST_DEV_PAIR_RATE", 1.821e7))
-DEV_HIT_RATE = float(os.environ.get("PRIBLAST_DEV_HIT_RATE", 7.516e4))
+HOST_PAIR_RATE = float(os.environ.get("PRIBLAST_HOST_PAIR_RATE", 2.011e5))
+DEV_PAIR_RATE = float(os.environ.get("PRIBLAST_DEV_PAIR_RATE", 2.646e7))
+DEV_HIT_RATE = float(os.environ.get("PRIBLAST_DEV_HIT_RATE", 5.845e5))
 HIT_DENSITY = float(os.environ.get("PRIBLAST_HIT_DENSITY", 0.09855))
-DEV_DISPATCH_S = float(os.environ.get("PRIBLAST_DEV_DISPATCH_S", 0.1357))
+DEV_DISPATCH_S = float(os.environ.get("PRIBLAST_DEV_DISPATCH_S", 0.0614))
 
 # measured rates (pairs/s) by side, updated after each wave by _calibrate;
 # each side writes only its own key
@@ -89,9 +95,10 @@ def _dev_rate(n_dev: int) -> float:
 
 
 def device_extend_wins(n_pairs: int, threads: int, n_dev: int) -> bool:
-    """Winner-take-all estimate (PRIBLAST_HYBRID=0, and hosts where the
-    hybrid is off): the device chain against the host chain for a wave of
-    `n_pairs` candidate pairs. The device side carries its fixed per-wave
+    """Winner-take-all estimate: the device chain against the host chain
+    for a wave of `n_pairs` candidate pairs. It picks the chain where the
+    hybrid is off, and under PRIBLAST_HYBRID=auto a win of the device
+    chain turns the hybrid off. The device side carries its fixed per-wave
     cost, so tiny waves stay on the host."""
     host_t = n_pairs / (HOST_PAIR_RATE * max(threads, 1))
     dev_t = (DEV_DISPATCH_S
@@ -214,8 +221,10 @@ def route(p, chunks, queries, mode: str, devices, threads: int):
     """Which chain searches each query of a wave. Returns (host qids,
     device qids, the seed candidates or None, pairs per qid); in `auto` the
     host seeds the wave once, and the device chain reuses the candidates
-    of its queries. The device side's rate counts len(devices) devices, as
-    the JAX package counts its mesh."""
+    of its queries. The device side's rate counts the distinct devices of
+    `devices` (a card listed twice, as two shards on one card, is one
+    card's rate), as the JAX package counts its mesh, which never holds a
+    device twice."""
     from priblast_tpu_torch.search import seed
 
     every = list(range(len(queries)))
@@ -228,18 +237,23 @@ def route(p, chunks, queries, mode: str, devices, threads: int):
     pairs_by_q = dict.fromkeys(every, 0)
     for (qid, _cid), c in cands:
         pairs_by_q[qid] += seed.n_pairs(c)
+    n_dev = len(dist.distinct(devices))
+    dev_wins = device_extend_wins(sum(pairs_by_q.values()), threads, n_dev)
     hyb = os.environ.get("PRIBLAST_HYBRID", "auto").lower()
     if hyb == "auto":
         # the hybrid needs a card, and spare cores: on a host of few
-        # threads the host chain starves the device chain's own host work
+        # threads the host chain starves the device chain's own host work.
+        # Where the device chain alone wins, the host side's threads take
+        # the cores its host stages (mid, the overflow re-runs, finish)
+        # need, and the hybrid ran slower than the device chain alone
+        # (chip_smoke.py [hybrid] against [main])
         has_card = any(dev.type == "cuda" for dev in devices)
-        hyb = "1" if has_card and threads >= 4 else "0"
+        hyb = "1" if has_card and threads >= 4 and not dev_wins else "0"
     if hyb in ("0", "false"):
-        if device_extend_wins(sum(pairs_by_q.values()), threads,
-                              len(devices)):
+        if dev_wins:
             return [], every, cands, pairs_by_q
         return every, [], cands, pairs_by_q
-    host_qids, dev_qids = split_wave(pairs_by_q, threads, len(devices))
+    host_qids, dev_qids = split_wave(pairs_by_q, threads, n_dev)
     return host_qids, dev_qids, cands, pairs_by_q
 
 

@@ -52,8 +52,9 @@ def local_devices(device: str, pidx: int = 0, pcount: int = 1) -> list:
         return [torch.device("cpu")]
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "--engine gpu needs a CUDA device and none is available; "
-            "pass --device cpu to run the device engine on the CPU, or "
+            "the device engine (--engine gpu, and --engine auto, the "
+            "default) needs a CUDA device and none is available; pass "
+            "--device cpu to run the device engine on the CPU, or "
             "--engine exact for the host engine")
     n_cards = torch.cuda.device_count()
     if n_cards >= pcount:

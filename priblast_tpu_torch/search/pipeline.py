@@ -12,7 +12,8 @@ few large batches instead of thousands of small calls:
                  hit stream tagged by group
   host   stage 3: per-group sort + interaction-threshold dedup + seed bps
   device stage 4: gapped extension DP + traceback (one CUDA kernel per
-                 direction)
+                 direction); the hits past its max_ext re-run on the exact
+                 host engine, on threads beside the next hit batches
   host   stage 5: vectorized base-pair assembly + per-group finish
          (dangles, bp sort, final sort + dedup)
 
@@ -325,7 +326,8 @@ def gapped_cap(devices, max_ext: int = 32, dtype: str = "float32") -> int:
 
 def gapped_stage(stream: HitStream, seed_bps: dict, qpack: QueryPack,
                  dbpack: DbPack, chunks, queries, p, *, devices,
-                 max_ext: int = 32, dtype: str = "float32"):
+                 threads: int = 1, max_ext: int = 32,
+                 dtype: str = "float32"):
     """Device gapped extension + traceback over the whole stream; assembles
     the final per-hit base-pair arrays (seed + left + right tracebacks, in
     reference push order). Returns bp arrays dict; updates stream in place.
@@ -334,9 +336,12 @@ def gapped_stage(stream: HitStream, seed_bps: dict, qpack: QueryPack,
     kernel on its device and thread, and the parts joined in order.
 
     Hits whose extension outruns max_ext diagonals are flagged overflow by
-    the device sweep and re-run from their pre-extension state on the
-    exact host engine (a few % of hits at the default max_ext=32), on this
-    thread.
+    the kernel and re-run from their pre-extension state on the exact host
+    engine (OverflowFallback), each batch's on `threads` - 1 host threads
+    while this thread runs the next batches. On chip_smoke.py's workload
+    at max_ext = 32 that is 47,125 of 1,249,785 hits (3.8%), whose native
+    calls took 4.5-5.5 s summed over the threads on the 8 cores of an
+    H100's host.
     """
     from priblast_tpu_torch.search.gapped import gapped_extend_flat_batch
 
@@ -357,45 +362,26 @@ def gapped_stage(stream: HitStream, seed_bps: dict, qpack: QueryPack,
             device=dev)
 
     gparts, bparts, oparts = [], [], []
-    for o in range(0, n, cap):
-        rows = dist.split_rows(min(cap, n - o), len(devices))
-        shards = [(dev, o + lo, o + hi)
-                  for dev, (lo, hi) in zip(devices, rows) if hi > lo]
-        for g, b, ov in dist.run_sharded(part, shards):
-            gparts.append(g)
-            bparts.append(b)
-            oparts.append(ov)
-    for k in STREAM_KEYS:
-        soa[k] = np.concatenate([g[k] for g in gparts])
-    overflow = np.concatenate(oparts)
-    bp = {k: np.concatenate([b[k] for b in bparts])
-          for k in ("n0", "q0", "db0", "n1", "q1", "db1")}
-
-    if overflow.any():
-        _overflow_fallback(stream, bp, overflow, chunks, queries, p)
-
-    # ---- vectorized assembly: per hit, seed bps then left then right
-    n_seed = np.diff(seed_bps["bp_off"]).astype(np.int64)
-    total = n_seed + bp["n0"] + bp["n1"]
-    bp_off = np.zeros(n + 1, np.int64)
-    np.cumsum(total, out=bp_off[1:])
-    bp_q = np.empty(bp_off[-1], np.int32)
-    bp_db = np.empty(bp_off[-1], np.int32)
-
-    def scatter(counts, start_within, src_q, src_db):
-        # destination indices for ragged per-hit segments
-        if len(src_q) == 0:
-            return
-        dst = (np.repeat(bp_off[:-1] + start_within, counts)
-               + _ragged_arange(counts))
-        bp_q[dst] = src_q
-        bp_db[dst] = src_db
-
-    scatter(n_seed, np.zeros(n, np.int64), seed_bps["bp_q"],
-            seed_bps["bp_db"])
-    scatter(bp["n0"], n_seed, bp["q0"], bp["db0"])
-    scatter(bp["n1"], n_seed + bp["n0"], bp["q1"], bp["db1"])
-    return dict(bp_off=bp_off, bp_q=bp_q, bp_db=bp_db)
+    with OverflowFallback(stream, chunks, queries, p, threads) as fallback:
+        for o in range(0, n, cap):
+            rows = dist.split_rows(min(cap, n - o), len(devices))
+            shards = [(dev, o + lo, o + hi)
+                      for dev, (lo, hi) in zip(devices, rows) if hi > lo]
+            for g, b, ov in dist.run_sharded(part, shards):
+                gparts.append(g)
+                bparts.append(b)
+                oparts.append(ov)
+            fallback.submit(np.concatenate(oparts[-len(shards):]), o)
+        for k in STREAM_KEYS:
+            soa[k] = np.concatenate([g[k] for g in gparts])
+        bp = {k: np.concatenate([b[k] for b in bparts])
+              for k in ("n0", "q0", "db0", "n1", "q1", "db1")}
+        segments = fallback.patch([
+            (np.diff(seed_bps["bp_off"]), seed_bps["bp_q"],
+             seed_bps["bp_db"]),
+            (bp["n0"], bp["q0"], bp["db0"]),
+            (bp["n1"], bp["q1"], bp["db1"])])
+    return assemble_bps(segments)
 
 
 def _ragged_arange(counts: np.ndarray) -> np.ndarray:
@@ -409,48 +395,107 @@ def _ragged_arange(counts: np.ndarray) -> np.ndarray:
     return out
 
 
-def _overflow_fallback(stream: HitStream, bp: dict, overflow: np.ndarray,
-                       chunks, queries, p) -> None:
-    """Extension outran the device cap — exact host-engine fallback from the
-    pre-extension state, patched into the stream and bp dict. Base-pair
-    segments are rebuilt in ONE split/replace/concat pass, so the cost is
-    O(total bps), independent of the overflow count."""
-    soa = stream.soa
-    repl: dict[int, tuple[np.ndarray, np.ndarray]] = {}
-    for qid, cid, lo, hi in stream.groups:
-        idx = lo + np.nonzero(overflow[lo:hi])[0]
-        if len(idx) == 0:
-            continue
-        q_enc, _q_sa, q_acc, q_cond = queries[qid]
-        sub = {k: soa[f"pre_{k}"][idx] for k in STREAM_KEYS}
-        ref = native.gapped_extend(q_enc, q_acc, q_cond, chunks[cid], p, sub)
-        for out_i, src_i in enumerate(idx):
+def assemble_bps(segments) -> dict:
+    """The base-pair arrays (bp_off, bp_q, bp_db) of ragged per-hit
+    segments [(counts[n], q, db), ...], each segment's pairs lying
+    hit after hit: a hit's pairs are its segments' in list order."""
+    counts = [np.asarray(c, np.int64) for c, _q, _db in segments]
+    n = len(counts[0])
+    bp_off = np.zeros(n + 1, np.int64)
+    np.cumsum(sum(counts), out=bp_off[1:])
+    bp_q = np.empty(bp_off[-1], np.int32)
+    bp_db = np.empty(bp_off[-1], np.int32)
+    start = bp_off[:-1].copy()
+    for c, (_c, q, db) in zip(counts, segments):
+        if len(q):
+            dst = np.repeat(start, c) + _ragged_arange(c)
+            bp_q[dst] = q
+            bp_db[dst] = db
+        start += c
+    return dict(bp_off=bp_off, bp_q=bp_q, bp_db=bp_db)
+
+
+class OverflowFallback:
+    """The exact host engine for the hits whose extension outran the
+    kernel's max_ext, from their pre-extension state (the stream's pre_*
+    fields). `submit` queues the re-runs of one batch's flagged hits, one
+    native call per (query, chunk) group the batch holds, on a pool of
+    `threads` - 1 host threads (at least one; ctypes releases the GIL), so
+    they run while the caller goes on with the next batches on the core
+    left to it; each call is timed as the stage ris.gapped.rerun (summed
+    over the threads). `patch` waits for
+    them (ris.gapped.rerun_wait), then patches their results in, in
+    submission order, with one vectorised pass (ris.gapped.patch) that
+    builds no per-hit Python object. Results depend neither on `threads`
+    nor on how the hits were cut into batches. Use it as a context
+    manager: the pool is shut down on leaving it."""
+
+    def __init__(self, stream: HitStream, chunks, queries, p,
+                 threads: int = 1):
+        self.stream, self.chunks, self.queries, self.p = (stream, chunks,
+                                                          queries, p)
+        self._his = np.asarray([hi for _q, _c, _lo, hi in stream.groups],
+                               np.int64)
+        self._idx, self._futs = [], []
+        self.workers = max(1, threads - 1)
+        self._pool = cf.ThreadPoolExecutor(self.workers)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._pool.shutdown(cancel_futures=True)
+
+    def _rerun(self, qid, cid, idx):
+        q_enc, _q_sa, q_acc, q_cond = self.queries[qid]
+        sub = {k: self.stream.soa[f"pre_{k}"][idx] for k in STREAM_KEYS}
+        with prof.stage("ris.gapped.rerun"):
+            return native.gapped_extend(q_enc, q_acc, q_cond,
+                                        self.chunks[cid], self.p, sub)
+
+    def submit(self, overflow: np.ndarray, start: int = 0) -> None:
+        """Queue the re-runs of the hits start .. start + len(overflow) - 1
+        that `overflow` flags."""
+        end = start + len(overflow)
+        gi = int(np.searchsorted(self._his, start, side="right"))
+        for qid, cid, lo, hi in self.stream.groups[gi:]:
+            if lo >= end:
+                break
+            lo, hi = max(lo, start), min(hi, end)
+            idx = lo + np.flatnonzero(overflow[lo - start: hi - start])
+            if len(idx):
+                self._idx.append(idx)
+                self._futs.append(self._pool.submit(self._rerun, qid, cid,
+                                                    idx))
+
+    def patch(self, segments):
+        """The stream's fields of every re-run hit patched in place.
+        `segments` = [seed, left, right] as gapped_stage builds them
+        (per-hit counts and the pairs, hit after hit). Returns [seed,
+        host, left, right]: a re-run hit's device left and right pairs are
+        dropped, and the host engine's (left and right contiguously, as it
+        emits them) follow its seed pairs."""
+        with prof.stage("ris.gapped.rerun_wait"):
+            refs = [f.result() for f in self._futs]
+        if not refs:
+            return segments
+        with prof.stage("ris.gapped.patch"):
+            soa = self.stream.soa
+            idx = np.concatenate(self._idx)
             for k in STREAM_KEYS:
-                soa[k][src_i] = ref[k][out_i]
-            blo, bhi = ref["bp_off"][out_i], ref["bp_off"][out_i + 1]
-            repl[int(src_i)] = (ref["bp_q"][blo:bhi], ref["bp_db"][blo:bhi])
-    if not repl:
-        return
-    # the host engine emits left+right bps contiguously; only the
-    # concatenation order matters downstream, so the replacement lands in
-    # the "left" segment and the right one empties
-    seg_q = np.split(bp["q0"], np.cumsum(bp["n0"])[:-1])
-    seg_db = np.split(bp["db0"], np.cumsum(bp["n0"])[:-1])
-    seg_q1 = np.split(bp["q1"], np.cumsum(bp["n1"])[:-1])
-    seg_db1 = np.split(bp["db1"], np.cumsum(bp["n1"])[:-1])
-    empty = np.zeros(0, np.int32)
-    n0 = bp["n0"].copy()
-    n1 = bp["n1"].copy()
-    for hit, (q, db) in repl.items():
-        seg_q[hit], seg_db[hit] = q, db
-        seg_q1[hit], seg_db1[hit] = empty, empty
-        n0[hit] = len(q)
-        n1[hit] = 0
-    bp["n0"], bp["n1"] = n0, n1
-    bp["q0"] = np.concatenate(seg_q)
-    bp["db0"] = np.concatenate(seg_db)
-    bp["q1"] = np.concatenate(seg_q1)
-    bp["db1"] = np.concatenate(seg_db1)
+                soa[k][idx] = np.concatenate([ref[k] for ref in refs])
+            rerun = np.zeros(len(self.stream), bool)
+            rerun[idx] = True
+            n_host = np.zeros(len(rerun), np.int64)
+            n_host[idx] = np.concatenate([np.diff(ref["bp_off"])
+                                          for ref in refs])
+            host = (n_host, np.concatenate([ref["bp_q"] for ref in refs]),
+                    np.concatenate([ref["bp_db"] for ref in refs]))
+            device = []
+            for c, q, db in segments[1:]:
+                keep = np.repeat(~rerun, c)
+                device.append((np.where(rerun, 0, c), q[keep], db[keep]))
+        return [segments[0], host, *device]
 
 
 def finish_stage(stream: HitStream, bps: dict, queries, chunks, p,
@@ -507,7 +552,8 @@ def finish_search(stream: HitStream, p, chunks, queries, qpack: QueryPack,
             stream.soa[f"pre_{k}"] = stream.soa[k].copy()
     with prof.stage("ris.gapped", devices):
         bps = gapped_stage(stream, seed_bps, qpack, dbpack, chunks, queries,
-                           p, devices=devices, max_ext=max_ext, dtype=dtype)
+                           p, devices=devices, threads=threads,
+                           max_ext=max_ext, dtype=dtype)
     with prof.stage("ris.finish"):
         results = finish_stage(stream, bps, queries, chunks, p, threads)
     return stream, results

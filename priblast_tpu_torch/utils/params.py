@@ -7,9 +7,10 @@ accessible length) from the ``.bas`` file rather than flags — a real coupling
 the search must keep (src/rna_interaction_search_parameters.cpp:97-114).
 
 ``engine`` picks the exact host engine or the PyTorch device engine
-(``gpu``); ``device`` names the kind of torch device the ``gpu`` engine
-runs on: ``cuda`` (every card the process owns,
-parallel/dist.py:local_devices) or ``cpu``.
+(``gpu``); ``auto``, the default, is the device engine (resolve_engine);
+``device`` names the kind of torch device the ``gpu`` engine runs on:
+``cuda`` (every card the process owns, parallel/dist.py:local_devices) or
+``cpu``.
 """
 
 from __future__ import annotations
@@ -18,8 +19,20 @@ import dataclasses
 import struct
 from pathlib import Path
 
-ENGINES = ("gpu", "exact")
+ENGINES = ("auto", "gpu", "exact")
 DEVICES = ("cuda", "cpu")
+
+
+def resolve_engine(engine: str) -> str:
+    """`auto` -> the device engine (`gpu`), on whatever `device` names;
+    `gpu` and `exact` stay. The JAX package's `auto` takes the exact host
+    engine where it finds no accelerator; here that would be a silent
+    switch to the CPU, which the port never makes: with `--device cuda`
+    and no card the device engine raises (parallel/dist.py:local_devices),
+    naming `--device cpu` and `--engine exact`."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    return "gpu" if engine == "auto" else engine
 
 
 @dataclasses.dataclass
@@ -33,8 +46,11 @@ class DbParams:
     chunk_size: int = 2**31 - 1
     algorithm: str = "heap"
     tmp_path: str = ""
-    engine: str = "gpu"      # gpu | exact
+    engine: str = "auto"     # auto (= gpu) | gpu | exact
     device: str = "cuda"     # cuda | cpu (gpu engine only)
+
+    def __post_init__(self) -> None:
+        self.engine = resolve_engine(self.engine)
 
     def validate(self) -> None:
         if not self.db_name:
@@ -60,7 +76,7 @@ class RisParams:
     output_style: int = 0
     algorithm: str = "area"
     tmp_path: str = ""
-    engine: str = "gpu"      # gpu | exact
+    engine: str = "auto"     # auto (= gpu) | gpu | exact
     device: str = "cuda"     # cuda | cpu (gpu engine only)
     # device-engine working dtype: float32, or float64 for ~1e-9 kcal/mol
     # agreement with the exact engine's accessibility
@@ -70,6 +86,9 @@ class RisParams:
     repeat_flag: int = 0
     maximal_span: int = 0
     min_accessible_length: int = 0
+
+    def __post_init__(self) -> None:
+        self.engine = resolve_engine(self.engine)
 
     def load_db_params(self) -> None:
         bas = Path(self.db_name + ".bas")

@@ -1,8 +1,10 @@
 """The port's entry points end to end on the tiny goldens, on the CPU:
 `ris --engine gpu --device cpu` and `db --engine gpu --device cpu` held to
 what tests/test_tpu_engine.py:55-109 holds the JAX device engine to, the
-port's ris output also against JAX's own `--engine tpu` output, and the
-device engine's refusal to run without a card unless asked for the CPU."""
+port's ris output also against JAX's own `--engine tpu` output, the
+device engine's refusal to run without a card unless asked for the CPU,
+and `--engine auto`: the default, the device engine, never the exact
+engine."""
 
 import filecmp
 
@@ -99,6 +101,68 @@ def test_gpu_engine_without_a_card_raises(tmp_path, data_dir, golden_dir,
     else:
         argv = ["db", "-i", str(data_dir / "tiny_db.fa"),
                 "-o", str(tmp_path / "x")]
-    with pytest.raises(RuntimeError, match="--device cpu"):
+    with pytest.raises(RuntimeError, match="--device cpu") as err:
         cli.main(argv)
+    assert "--engine exact" in str(err.value)
     assert not list(tmp_path.iterdir())   # nothing was written
+
+
+def _argv(mode, tmp_path, data_dir, golden_dir, out):
+    if mode == "ris":
+        return ["ris", "-i", str(data_dir / "tiny_q.fa"), "-o",
+                str(tmp_path / out), "-d",
+                str(golden_dir / "tiny" / "tiny_db")]
+    return ["db", "-i", str(data_dir / "tiny_db.fa"), "-o",
+            str(tmp_path / out)]
+
+
+@pytest.mark.parametrize("mode", ["ris", "db"])
+def test_auto_engine_without_a_card_raises(tmp_path, data_dir, golden_dir,
+                                           mode):
+    """`--engine auto` without a card and without `--device cpu` fails as
+    `--engine gpu` does, naming both ways out; it never falls to the
+    exact engine."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    argv = _argv(mode, tmp_path, data_dir, golden_dir, "x")
+    with pytest.raises(RuntimeError, match="--engine exact") as err:
+        cli.main(argv + ["--engine", "auto"])
+    assert "--device cpu" in str(err.value)
+    assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("mode", ["ris", "db"])
+def test_engine_flag_resolves_auto_to_the_device_engine(monkeypatch, mode,
+                                                        tmp_path, data_dir,
+                                                        golden_dir):
+    """argparse takes auto, gpu and exact for both steps; the params the
+    step receives hold gpu for auto and for no flag, and nothing else is
+    accepted."""
+    import importlib
+
+    step = importlib.import_module(f"priblast_tpu_torch.models.{mode}")
+    seen = []
+    monkeypatch.setattr(step, "run", lambda p, **kw: seen.append(p.engine))
+    argv = _argv(mode, tmp_path, data_dir, golden_dir, "x")
+    for flag in ([], ["--engine", "auto"], ["--engine", "gpu"],
+                 ["--engine", "exact"]):
+        cli.main(argv + flag)
+    assert seen == ["gpu", "gpu", "gpu", "exact"]
+    with pytest.raises(SystemExit):
+        cli.main(argv + ["--engine", "tpu"])
+
+
+@pytest.mark.parametrize("mode", ["ris", "db"])
+def test_auto_engine_on_cpu_writes_the_bytes_of_gpu(tmp_path, data_dir,
+                                                    golden_dir, mode):
+    """`--engine auto --device cpu` and `--engine gpu --device cpu` write
+    the same bytes on the tiny goldens (every db file; the ris output)."""
+    outs = {}
+    for engine in ("auto", "gpu"):
+        cli.main(_argv(mode, tmp_path, data_dir, golden_dir, engine)
+                 + ["--engine", engine, "--device", "cpu"])
+        outs[engine] = sorted(tmp_path.glob(f"{engine}*"))
+    assert outs["auto"] and len(outs["auto"]) == len(outs["gpu"])
+    for a, b in zip(outs["auto"], outs["gpu"]):
+        assert a.suffix == b.suffix
+        assert a.read_bytes() == b.read_bytes(), a

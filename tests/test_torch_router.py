@@ -32,6 +32,8 @@ from priblast_tpu_torch.utils import alphabet, fasta, store  # noqa: E402
 from priblast_tpu_torch.utils import profiling as prof  # noqa: E402
 from priblast_tpu_torch.utils.params import RisParams  # noqa: E402
 
+CPU = torch.device("cpu")
+
 
 @pytest.fixture()
 def rt(monkeypatch):
@@ -150,6 +152,88 @@ def test_device_extend_mode_reads_the_environment_at_each_call(monkeypatch):
             == mode
     monkeypatch.delenv("PRIBLAST_DEVICE_EXTEND")
     assert ris_gpu.device_extend_mode() == "auto"
+
+
+@pytest.fixture()
+def tiny_wave(data_dir, golden_dir):
+    """(p, chunks, queries) of the tiny goldens, as route() takes them."""
+    p = RisParams(input=str(data_dir / "tiny_q.fa"), output="-",
+                  db_name=str(golden_dir / "tiny" / "tiny_db"), device="cpu")
+    p.load_db_params()
+    chunks = store.load_chunks(p.db_name, p.hash_size)
+    queries = []
+    for seq in fasta.read_fasta(p.input)[1]:
+        q_enc = alphabet.encode_query(seq, p.repeat_flag)
+        queries.append((q_enc, native.sa_build(q_enc), *native.raccess(
+            alphabet.access_codes(seq), p.maximal_span,
+            p.min_accessible_length)))
+    return p, chunks, queries
+
+
+def test_route_counts_a_repeated_device_once(rt, monkeypatch, tiny_wave):
+    """route() with devices=[cpu, cpu] (two shards on one device) splits as
+    with [cpu]: the rate counts distinct devices, as the JAX package's
+    mesh does, in the hybrid split and in the winner-take-all choice. The
+    rates make the device side's width decide both."""
+    p, chunks, queries = tiny_wave
+    seen = []
+    for name in ("split_wave", "device_extend_wins"):
+        def rec(pairs, threads, n_dev, _fn=getattr(rt, name)):
+            seen.append(n_dev)
+            return _fn(pairs, threads, n_dev)
+
+        monkeypatch.setattr(rt, name, rec)
+    pairs = rt.route(p, chunks, queries, "auto", [CPU], 4)[3]
+    total = sum(pairs.values())
+    assert total > 0
+    # the device side, at one device, a little slower than the host's 4
+    # threads, so that a second device would flip the choices
+    monkeypatch.setattr(rt, "DEV_DISPATCH_S", 0.0)
+    monkeypatch.setattr(rt, "HIT_DENSITY", 0.0)
+    monkeypatch.setattr(rt, "HOST_PAIR_RATE", 1e6)
+    monkeypatch.setattr(rt, "DEV_PAIR_RATE", 3.5e6)
+    for hyb in ("0", "1"):
+        monkeypatch.setenv("PRIBLAST_HYBRID", hyb)
+        seen.clear()
+        one = rt.route(p, chunks, queries, "auto", [CPU], 4)
+        two = rt.route(p, chunks, queries, "auto", [CPU, CPU], 4)
+        assert len(seen) >= 2 and seen == [1] * len(seen)
+        assert one[:2] == two[:2] and one[3] == two[3] == pairs
+    assert not rt.device_extend_wins(total, 4, 1)
+    assert rt.device_extend_wins(total, 4, 2)
+    assert rt.split_wave(pairs, 4, 1) != rt.split_wave(pairs, 4, 2)
+
+
+@pytest.mark.parametrize("dev_wins", [True, False])
+def test_hybrid_auto_stays_off_where_the_device_chain_wins(rt, monkeypatch,
+                                                           tiny_wave,
+                                                           dev_wins):
+    """PRIBLAST_HYBRID=auto with a card and 4 threads: the whole wave goes
+    to the device chain where device_extend_wins says it wins alone, and
+    to the hybrid split otherwise. route() only seeds on the host, so a
+    cuda device in the list needs no card here."""
+    p, chunks, queries = tiny_wave
+    monkeypatch.delenv("PRIBLAST_HYBRID", raising=False)
+    monkeypatch.setattr(rt, "DEV_DISPATCH_S", 0.0)
+    monkeypatch.setattr(rt, "HIT_DENSITY", 0.0)
+    monkeypatch.setattr(rt, "HOST_PAIR_RATE", 1e6)
+    monkeypatch.setattr(rt, "DEV_PAIR_RATE", 8e6 if dev_wins else 2e6)
+    splits = []
+
+    def rec(pairs, threads, n_dev, _fn=rt.split_wave):
+        splits.append(_fn(pairs, threads, n_dev))
+        return splits[-1]
+
+    monkeypatch.setattr(rt, "split_wave", rec)
+    host, dev, _cands, pairs = rt.route(p, chunks, queries, "auto",
+                                        [torch.device("cuda", 0)], 4)
+    total = sum(pairs.values())
+    assert total > 0
+    assert rt.device_extend_wins(total, 4, 1) == dev_wins
+    if dev_wins:
+        assert splits == [] and host == [] and dev == list(pairs)
+    else:
+        assert splits == [(host, dev)] and host and dev
 
 
 # ---- ris in each mode against the JAX package in the same mode ----------
