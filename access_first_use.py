@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
 """Where the first use of the accessibility path goes in a fresh process on
-one GPU: the query accessibility of `ris --engine gpu`, split into its
-parts, timed once cold and once warm.
+one GPU: the accessibility batches of `ris --engine gpu` (or, with --db, of
+`db --engine gpu`), split into their parts, timed once cold and once warm.
 
-    python3 access_first_use.py [--work build/chip_smoke] [--runs 2]
+    python3 access_first_use.py [--db] [--work build/chip_smoke] [--runs 2]
 
-Each run is a fresh process (`--child`) that reads the queries of
-chip_smoke.py's workload (q.fa in --work: run chip_smoke.py first), makes
-the CUDA context, and then goes twice over every batch that `ris` plans
-for them (`plan_batches`), as `BatchedRaccess.run` does, synchronising
-after each part: the host-to-device copy, the tables and grids (PyTorch),
-the loading of each scan kernel's library (`ops/access_scan.py:_lib`:
-build check and dlopen), each scan kernel's call, the outside grids, and
-the probabilities with the copy back. The first pass holds every first
-use (libraries, the kernels' modules and shared-memory attribute,
-PyTorch's first launches and allocations); the second holds none. The
-kernels' libraries must be built already (chip_smoke.py builds them).
+Each run is a fresh process (`--child`) that reads chip_smoke.py's
+workload from --work (q.fa, or db.fa with --db; written there from seed 0
+where missing), makes the CUDA context, and then goes twice over every
+batch that `ris` (or `db`) plans for those sequences (`plan_batches`), as
+`BatchedRaccess.run` does, synchronising after each part:
+- h2d: the host-to-device copy;
+- grids: the tables and grids (PyTorch);
+- load_inside, inside: the inside scan kernel's library (build check and
+  dlopen, `ops/access_scan.py:_lib`), then its call; likewise
+  outside_grids (PyTorch), load_outside and outside;
+- load_prob: the probability kernel's library (`ops/access_prob.py:_lib`);
+- probability_pass: the probability kernel's call (`window_probs`);
+- epilogue: accessibility_from_probabilities and the copy back.
+The first pass holds every first use (libraries, the kernels' modules and
+shared-memory attributes, PyTorch's first launches and allocations); the
+second holds none. The kernels' libraries must be built already
+(chip_smoke.py builds them).
 """
 
 from __future__ import annotations
@@ -29,16 +35,18 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 PARTS = ("h2d", "grids", "load_inside", "inside", "outside_grids",
-         "load_outside", "outside", "probabilities")
+         "load_outside", "outside", "load_prob",
+         "probability_pass", "epilogue")
 
 
-def child(work: Path) -> None:
+def child(work: Path, fa: str) -> None:
     import numpy as np
     import torch
 
     sys.path.insert(0, str(REPO))
     from priblast_tpu_torch.accessibility import batched as ab
     from priblast_tpu_torch.models import db_gpu
+    from priblast_tpu_torch.ops import access_prob
     from priblast_tpu_torch.ops import access_scan as acs
     from priblast_tpu_torch.utils import alphabet, fasta
     from priblast_tpu_torch.utils.params import DbParams
@@ -53,7 +61,7 @@ def child(work: Path) -> None:
     w, dmin, dt = p.maximal_span, p.min_accessible_length, torch.float32
     band = w + 2
     kT = float(ab._linmodel(w).sp.kT)
-    _names, seqs = fasta.read_fasta(work / "q.fa")
+    _names, seqs = fasta.read_fasta(work / fa)
     lengths = [len(s) for s in seqs]
     batches = []
     for group, bsz, padded in db_gpu.plan_batches(lengths):
@@ -63,6 +71,7 @@ def child(work: Path) -> None:
         lens = np.zeros(bsz, np.int64)
         lens[: len(group)] = [lengths[i] for i in group]
         batches.append((codes, lens, padded))
+    shapes = ", ".join(f"{c.shape[0]} x {n}" for c, _l, n in batches)
 
     for name in ("cold", "warm"):
         parts: dict[str, float] = defaultdict(float)
@@ -90,16 +99,17 @@ def child(work: Path) -> None:
                 part("load_outside", lambda: acs._lib("outside"))
                 outs = part("outside", lambda: acs.outside_scan(
                     t, og, m1, n_max, band, dt))
+                part("load_prob", access_prob._lib)
+                pw = part("probability_pass", lambda: access_prob.window_probs(
+                    t, g, s, lens, dmin, n_max, band, dt, ins, outs))
 
-                def probabilities():
-                    pw = ab.scan_probabilities(t, g, s, lens, dmin, n_max,
-                                               band, dt, ins, outs)
+                def epilogue():
                     acc, cond = ab.accessibility_from_probabilities(
                         *pw, lens, dmin, n_max, kT)
                     return acc.cpu().numpy(), cond.cpu().numpy()
 
-                part("probabilities", probabilities)
-        print(f"[first-use] {name} {len(batches)} batches "
+                part("epilogue", epilogue)
+        print(f"[first-use] {name} {fa} {len(batches)} batches ({shapes}) "
               f"{sum(parts.values()):.4f} s: "
               + " ".join(f"{k} {parts[k]:.4f}" for k in PARTS), flush=True)
 
@@ -108,18 +118,25 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--work", type=Path, default=REPO / "build" / "chip_smoke")
     ap.add_argument("--runs", type=int, default=2)
+    ap.add_argument("--db", action="store_true",
+                    help="the db batches (db.fa) instead of the ris ones")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     work = args.work.resolve()
-    if not (work / "q.fa").is_file():
-        sys.exit(f"access_first_use: no chip_smoke.py workload in {work}")
+    fa = "db.fa" if args.db else "q.fa"
+    if not (work / fa).is_file():
+        sys.path.insert(0, str(REPO))
+        import chip_smoke
+
+        chip_smoke.write_workload(work, 0)
     if args.child:
-        child(work)
+        child(work, fa)
         return 0
     for _ in range(args.runs):
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, __file__, "--child", "--work",
-                            str(work)], cwd=REPO)
+                            str(work), *(["--db"] if args.db else [])],
+                           cwd=REPO)
         if r.returncode != 0:
             return r.returncode
         print(f"[first-use] process wall {time.perf_counter() - t0:.3f} s",

@@ -7,10 +7,10 @@ Phases (any failure ends the run with a non-zero exit code):
   1. device: the card's name and power limit, torch and CUDA versions, the
      host's core count (os.cpu_count() and the affinity mask), and the
      devices `--device cuda` gives this process (every card);
-  2. build: the native host library (g++) and the four CUDA kernel
+  2. build: the native host library (g++) and the five CUDA kernel
      sources (nvcc, sm_90a: the gapped extension, the ungapped extension,
-     the accessibility inside scan and outside scan), all from this
-     checkout, started together;
+     the accessibility inside scan, outside scan and probability pass),
+     all from this checkout, started together;
   3. main path at full size: a seeded workload the size of bench.py's
      (100 queries of ~1,000 nt against 20 db sequences of ~5,000 nt,
      first-order Markov sequences of transcript-like composition) through
@@ -18,8 +18,8 @@ Phases (any failure ends the run with a non-zero exit code):
      pinned to the device chain (PRIBLAST_DEVICE_EXTEND=1), whose search is
      the fused path (host seed DFS, device expansion, the ungapped kernel,
      threshold, host mid, the gapped kernel, host finish) and whose
-     accessibility runs the two scan kernels; the four kernels'
-     launch counts, the stage seconds (`ris.fused` split into its
+     accessibility runs the two scan kernels and the probability kernel;
+     the five kernels' launch counts, the stage seconds (`ris.fused` split into its
      synchronised sub-stages), the peak device memory, and the mid stage's
      seconds and CPU seconds are read around that run; then the gapped
      kernel's overflow: the hits past max_ext, the host fallback's seconds
@@ -90,13 +90,20 @@ Phases (any failure ends the run with a non-zero exit code):
      with the most steps, each among three with the fewest), with the
      steps per hit and the lane efficiency of one thread per hit (steps
      over 32 x the sum of each warp's largest step count);
-  7. the accessibility scan kernels (the inside pass with both exterior
-     scans; the outside pass) against their plain versions on the main
-     path's first db batch and its first ris batch (their own shapes):
-     each kernel's planes against its plain version's on the same inputs,
-     and the window energies of the kernel chain against the plain
-     chain's (2e-3 kcal/mol); each with its time, the plain version's and
-     the card's least time for the same work.
+  7. the accessibility kernels (the inside pass with both exterior
+     scans; the outside pass; the probability pass) against their plain
+     versions on the main path's first db batch and its first ris batch
+     (their own shapes): each scan kernel's planes against its plain
+     version's on the same inputs, and the window energies of the kernel
+     chain against the plain chain's (2e-3 kcal/mol); the probability
+     kernel's p_w and p_w1 against scan_probabilities on the scan
+     kernels' planes (relative 1e-4, as the planes) and its window
+     energies (2e-3 kcal/mol); each with its time, the plain version's
+     and the card's least time for the same work; the probability
+     kernel's device time by launch (window and sum kernels, from
+     torch.profiler) and its window kernel's two instantiations (stem rows
+     staged in shared memory, or read from device memory) held bit for
+     bit and timed in turns.
 The last lines are the kernels' JSON record, the card line from nvidia-smi
 and {"ok": true, "device": {...}}.
 """
@@ -132,14 +139,16 @@ PLANE_RTOL = 1e-4
 # dropout test); a paired step adds its loop energy
 UNGAPPED_OPS_PER_STEP = 40
 # the port's CLI in a process of its own ([multiproc]), then one JSON line
-# of the launch counts of its four kernels over that run
+# of the launch counts of its five kernels over that run
 COUNTING_CLI = """
 import json, sys
 from priblast_tpu_torch import cli
-from priblast_tpu_torch.ops import access_scan, gapped_sweep, ungapped_extend
+from priblast_tpu_torch.ops import (access_prob, access_scan, gapped_sweep,
+                                    ungapped_extend)
 cli.main(sys.argv[1:])
 print(json.dumps({"access_inside": access_scan.inside_launches,
                   "access_outside": access_scan.outside_launches,
+                  "access_prob": access_prob.prob_launches,
                   "ungapped_extend": ungapped_extend.launches,
                   "gapped_extend": gapped_sweep.launches}))
 """
@@ -191,6 +200,21 @@ def write_fasta(path: Path, prefix: str, seqs) -> int:
             for k in range(0, len(s), 70):
                 f.write(s[k: k + 70] + "\n")
     return sum(len(s) for s in seqs)
+
+
+def write_workload(work: Path, seed: int) -> int:
+    """The main path's workload from `seed`: db.fa (N_DB sequences of
+    DB_LEN nt +- 4%) and q.fa (N_Q of Q_LEN nt +- 4%) in `work`. Returns
+    the db's nucleotides."""
+    import numpy as np
+
+    work.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    db_lens = DB_LEN + rng.integers(-DB_LEN // 25, DB_LEN // 25 + 1, N_DB)
+    q_lens = Q_LEN + rng.integers(-Q_LEN // 25, Q_LEN // 25 + 1, N_Q)
+    db_nt = write_fasta(work / "db.fa", "t", markov_batch(rng, db_lens))
+    write_fasta(work / "q.fa", "q", markov_batch(rng, q_lens))
+    return db_nt
 
 
 def hit_key(line: str):
@@ -469,6 +493,34 @@ def lanes_one_per_hit(st) -> float:
     return float(st.sum()) / (32 * float(warps.max(dim=1).values.sum()))
 
 
+def device_ms_by_kernel(fn, names: tuple[str, ...] = ()) -> dict:
+    """Device time (ms) of each kernel that one call of `fn` launches,
+    summed by name, from torch.profiler; empty where the profiler saw no
+    device time. A kernel whose profiler name holds one of `names` is
+    filed under that name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def short(name: str) -> str:
+        for n in names:
+            if n in name:
+                return n
+        name = name.replace("(anonymous namespace)::", "")
+        return name.removeprefix("void ").split("(")[0][:60]
+
+    out = Counter()
+    for ev in prof.key_averages():
+        if ev.device_time_total > 0:
+            out[short(ev.key)] += ev.device_time_total / 1e3
+    return dict(out)
+
+
 def access_bound_ms(B: int, n1: int, band: int, item: int, inside: bool,
                     dtype: str = "float32"):
     """Least time the card could take for one accessibility column scan of
@@ -548,10 +600,93 @@ def access_ops_per_column(band: int, ml: int, c: int, inside: bool) -> int:
     return ops
 
 
+def prob_bound_ms(B: int, n1: int, band: int, w: int, item: int,
+                  dtype: str = "float32"):
+    """Least time the card could take for the probability pass of a batch
+    of B sequences over n1 columns at window size w (`item` bytes per
+    value): the larger of the bytes it must move over the memory rate and
+    its operations over the peak rate of the dtype.
+
+    Bytes, each counted once: the planes it reads (stem_m, stem_a, multi,
+    multi2, bse, bse_m, bse_a, b_multi, b_multi2 and the hairpin grid hpW;
+    where w <= 2 also stem, the codes and the small-loop tables), A and B,
+    logZ, the two kernels' tables; p_w and p_w1 written.
+    Operations: `prob_ops_per_row`, once per sequence.
+
+    Returns (bound ms, "bytes" or "operations")."""
+    from priblast_tpu_torch.accessibility.batched import ML
+
+    R = ML + 1
+    planes = 10 + (w <= 2)
+    nbytes = (planes * n1 * band + 2 * n1 + 1 + 2 * (n1 + 1)) * B * item
+    nbytes += (R * R + R) * item
+    if w <= 2:
+        nbytes += B * (n1 + ML + 3) * 8 + 4 * (49 + 8 * 8 * (25 + 125 + 625))
+    ops = B * prob_ops_per_row(n1, band, w, ML)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def prob_ops_per_row(n1: int, band: int, w: int, ml: int) -> int:
+    """Operations of the probability pass for one sequence over n1 columns
+    (N = n1 - 1): 2 per multiply-add, 1 per add, product or exp, counted
+    from the loops of csrc/access_prob.cu, with the terms that lie past a
+    sequence's columns left out (a loop there does not run).
+
+    Per column c, window kernel:
+    - for each loop size u = w .. ML, the interior contraction of each
+      side: for the spans e = u+1 .. band-1, min(ML - u, e - u) inner
+      terms, then the product with the outer cell and its add (the right
+      side where c >= u, the left where c + e <= N);
+    - the bulges (u >= 2): one multiply-add per span, then the weight and
+      the add, each side;
+    - the small-loop specials (w <= 2): two products and an add per span
+      of each special that the window reaches;
+    - the hairpin products and their suffix sums, the running sums of
+      srcL / srcR;
+    per window x, sum kernel: the two exterior terms, the multiloop
+    products that lie within the sequence's columns, the hairpin, boundary
+    and conditional sums, the branch."""
+    import numpy as np
+
+    N, W = n1 - 1, band - 2
+    c = np.arange(n1)
+    ops = np.zeros(n1, np.int64)
+    for u in range(w, ml + 1):
+        e = np.arange(u + 1, band)
+        per = 2 * np.minimum(ml - u, e - u) + 2
+        cum = np.concatenate([[0], np.cumsum(per)])
+        ops += np.where(c >= u, int(per.sum()), 0)
+        ops += cum[np.clip(N - c - u, 0, len(e))]
+        if u >= 2:
+            nb = band - u
+            ops += np.where(c >= u, 2 * nb + 2, 0)
+            ops += 2 * np.clip(N - c - u + 1, 0, nb) + 2
+    for u1, u2 in ((1, 0), (0, 1), (1, 1), (1, 2), (2, 1), (2, 2)):
+        spans = band - u1 - u2
+        if u2 >= w:
+            ops += np.where(c >= u2, 3 * spans + 1, 0)
+        if u1 >= w:
+            ops += 3 * np.clip(N - c - u1 - u2 + 1, 0, spans) + 1
+    nu = max(ml - w + 1, 0)
+    nt = max(nu - 1, 0)
+    ops += band + sum(band - o for o in range(w, band - 1))
+    ops += nt * (nt + 1) + nu
+    x = c
+    for wsz in (w, w + 1):
+        ops += 3 + 2 * np.clip(N - x + 1 - wsz + 1, 0, max(band - wsz, 0))
+        ops += np.where((x >= 1) & (x + wsz - 1 <= N),
+                        2 * max(W - wsz + 1, 0), 0) + 1
+    ops += np.clip(N - x + 2 - w, 0, max(band - 1 - w, 0)) * 2
+    ops += np.minimum(x, nu) + 1 + 2 * nt + 8
+    return int(ops.sum())
+
+
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
 
     if not (REPO / "priblast_tpu_torch" / "csrc" / "gapped_extend.cu").is_file():
         fail(f"no priblast_tpu_torch package beside {__file__}")
@@ -566,6 +701,7 @@ def main() -> int:
     from priblast_tpu_torch.accessibility import batched
     from priblast_tpu_torch.models import ris as ris_model
     from priblast_tpu_torch.models import ris_gpu
+    from priblast_tpu_torch.ops import access_prob as ap
     from priblast_tpu_torch.ops import access_scan as acs
     from priblast_tpu_torch.ops import gapped_sweep, native
     from priblast_tpu_torch.ops import ungapped_extend as uop
@@ -603,7 +739,8 @@ def main() -> int:
 
     builds = {"native": native.build, "gapped_extend": gapped_sweep.build,
               "ungapped_extend": uop.build, "access_inside": acs.build_inside,
-              "access_outside": acs.build_outside}
+              "access_outside": acs.build_outside,
+              "access_prob": ap.build}
     with cf.ThreadPoolExecutor(len(builds)) as ex:
         futs = {k: ex.submit(timed, fn) for k, fn in builds.items()}
         built = {k: f.result() for k, f in futs.items()}
@@ -613,12 +750,7 @@ def main() -> int:
 
     # ---- 3. main path at full size -----------------------------------------
     work = REPO / "build" / "chip_smoke"
-    work.mkdir(parents=True, exist_ok=True)
-    rng = np.random.default_rng(args.seed)
-    db_lens = DB_LEN + rng.integers(-DB_LEN // 25, DB_LEN // 25 + 1, N_DB)
-    q_lens = Q_LEN + rng.integers(-Q_LEN // 25, Q_LEN // 25 + 1, N_Q)
-    db_nt = write_fasta(work / "db.fa", "t", markov_batch(rng, db_lens))
-    write_fasta(work / "q.fa", "q", markov_batch(rng, q_lens))
+    db_nt = write_workload(work, args.seed)
 
     # instrumentation: where accessibility ran, the query accessibilities
     # the device chain used, the mid stage's inputs and cost, the
@@ -703,7 +835,7 @@ def main() -> int:
     prof.reset()
     torch.cuda.reset_peak_memory_stats()
     gapped_sweep.launches = uop.launches = 0
-    acs.inside_launches = acs.outside_launches = 0
+    acs.inside_launches = acs.outside_launches = ap.prob_launches = 0
     t0 = time.perf_counter()
     cli.main(["db", "-i", str(work / "db.fa"), "-o", str(db_gpu)])
     t_db = time.perf_counter() - t0
@@ -714,7 +846,8 @@ def main() -> int:
     t_ris = time.perf_counter() - t0
     launches, ulaunches = gapped_sweep.launches, uop.launches
     alaunches = {"access_inside": acs.inside_launches,
-                 "access_outside": acs.outside_launches}
+                 "access_outside": acs.outside_launches,
+                 "access_prob": ap.prob_launches}
     stages = prof.snapshot()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     batched.BatchedRaccess.run = run0
@@ -749,7 +882,8 @@ def main() -> int:
           f"{len(gpu_lines)} hits; kernel launches: ungapped {ulaunches}, "
           f"gapped {launches}, access_inside "
           f"{alaunches['access_inside']}, access_outside "
-          f"{alaunches['access_outside']} ({n_db_batches} db + "
+          f"{alaunches['access_outside']}, access_prob "
+          f"{alaunches['access_prob']} ({n_db_batches} db + "
           f"{len(access_batches) - n_db_batches} ris batches); peak device "
           f"memory {peak_gb:.2f} GB {tag}",
           flush=True)
@@ -979,7 +1113,7 @@ def main() -> int:
         just before it (read just after by the caller)."""
         os.environ["PRIBLAST_DEVICE_EXTEND"] = mode
         gapped_sweep.launches = uop.launches = 0
-        acs.inside_launches = acs.outside_launches = 0
+        acs.inside_launches = acs.outside_launches = ap.prob_launches = 0
         t0 = time.perf_counter()
         cli.main(["ris", "-i", str(work / "q.fa"), "-o", str(out), "-d",
                   str(db_gpu)])
@@ -987,9 +1121,11 @@ def main() -> int:
 
     def scans_ran(phase: str) -> None:
         n_ris = len(access_batches) - n_db_batches
-        check(acs.inside_launches == acs.outside_launches == n_ris,
-              f"{phase}: the scan kernels launched {acs.inside_launches} / "
-              f"{acs.outside_launches} times for {n_ris} ris batches")
+        check(acs.inside_launches == acs.outside_launches
+              == ap.prob_launches == n_ris,
+              f"{phase}: the accessibility kernels launched "
+              f"{acs.inside_launches} / {acs.outside_launches} / "
+              f"{ap.prob_launches} times for {n_ris} ris batches")
 
     out_host = work / "ris_host.txt"
     t_he = run_ris("0", out_host)
@@ -1164,8 +1300,8 @@ def main() -> int:
     print(f"[multiproc] kernel launches per process: db {json.dumps(c_db)}; "
           f"ris {json.dumps(c_ris)}", flush=True)
     for step, counts, names in (
-            ("db", c_db, ("access_inside", "access_outside")),
-            ("ris", c_ris, ("access_inside", "access_outside",
+            ("db", c_db, ("access_inside", "access_outside", "access_prob")),
+            ("ris", c_ris, ("access_inside", "access_outside", "access_prob",
                             "ungapped_extend", "gapped_extend"))):
         for i, c in enumerate(counts):
             check(all(c[k] > 0 for k in names), f"two-process {step}: "
@@ -1202,7 +1338,7 @@ def main() -> int:
     fused._WaveBuffers.__init__ = wb_rec
     pipeline.gapped_stage = hits_rec
     gapped_sweep.launches = uop.launches = 0
-    acs.inside_launches = acs.outside_launches = 0
+    acs.inside_launches = acs.outside_launches = ap.prob_launches = 0
     try:
         t0 = time.perf_counter()
         db_model.run(DbParams(input=str(work / "db.fa"),
@@ -1219,6 +1355,7 @@ def main() -> int:
         pipeline.gapped_stage = gstage0
     got_launches = {"access_inside": acs.inside_launches,
                     "access_outside": acs.outside_launches,
+                    "access_prob": ap.prob_launches,
                     "ungapped_extend": uop.launches,
                     "gapped_extend": gapped_sweep.launches}
 
@@ -1230,6 +1367,7 @@ def main() -> int:
     gcap = pipeline.gapped_cap(devs)
     n_access = sum(parts(b) for b in sizes["rows"])
     plan = {"access_inside": n_access, "access_outside": n_access,
+            "access_prob": n_access,
             "ungapped_extend": sum(parts(min(block, n - o))
                                    for n in sizes["pairs"]
                                    for o in range(0, n, block)),
@@ -1420,12 +1558,16 @@ def main() -> int:
         return out, s0.elapsed_time(s1)
 
     def hold_access(label, codes, lengths):
-        """Both scan kernels against their plain versions on one batch of
-        the main path, float32 as it runs: each kernel's planes against its
-        plain version's on the same inputs (max relative error), the window
-        energies with the outside kernel alone and with the whole kernel
-        chain against the plain chain (kcal/mol); then both timed."""
-        dt, w = torch.float32, p.maximal_span
+        """The three accessibility kernels against their plain versions on
+        one batch of the main path, float32 as it runs: each scan kernel's
+        planes against its plain version's on the same inputs (max
+        relative error), the window energies with the outside kernel alone
+        and with both scan kernels against the plain chain (kcal/mol); the
+        probability kernel's p_w and p_w1 against scan_probabilities on the
+        scan kernels' planes (max relative error) and its window energies
+        (kcal/mol), alone and with the scan kernels against the plain
+        chain; then all three timed."""
+        dt, w, d = torch.float32, p.maximal_span, p.min_accessible_length
         band, (B, n_max) = w + 2, codes.shape
         s_np = np.zeros((B, n_max + batched.ML + 4), np.int64)
         s_np[:, 1: n_max + 1] = codes
@@ -1463,8 +1605,72 @@ def main() -> int:
                   f"relative ({label})")
             ms_in = cuda_ms(lambda: acs.inside_scan(*args), 5)
             ms_out = cuda_ms(lambda: acs.outside_scan(*oargs), 5)
+            # the probability kernel on the kernel chain's planes, the
+            # inputs the main path gives it, against scan_probabilities
+            pargs = (t, g, s, lens, d, n_max, band, dt, ins_k, chain)
+            pw_k = ap.window_probs(*pargs)
+            pw_p, plain_prob = timed_once(
+                lambda: batched.scan_probabilities(*pargs))
+            rel_prob = max_rel(pw_k, pw_p)
+            kT = batched._linmodel(w).sp.kT
+            de_prob = energy_diff(
+                batched.accessibility_from_probabilities(*pw_k, lens, d,
+                                                         n_max, kT),
+                batched.accessibility_from_probabilities(*pw_p, lens, d,
+                                                         n_max, kT))
+            de_three = energy_diff(
+                batched.accessibility_from_probabilities(*pw_k, lens, d,
+                                                         n_max, kT), e_p)
+            check(all(bool(torch.isfinite(x).all()) for x in pw_k),
+                  f"non-finite probability kernel output ({label})")
+            check(rel_prob <= PLANE_RTOL and de_prob <= ACCESS_TOL
+                  and de_three <= ACCESS_TOL,
+                  f"probability kernel differs by {rel_prob} relative, "
+                  f"{de_prob} kcal/mol (three kernels against the plain "
+                  f"chain: {de_three}) ({label})")
+            ms_prob = cuda_ms(lambda: ap.window_probs(*pargs), 5)
+            by_kernel = device_ms_by_kernel(
+                lambda: ap.window_probs(*pargs),
+                ("window_kernel", "sum_kernel"))
+            # the window kernel's two instantiations, stem rows staged in
+            # shared memory (the wrapper's) or read from device memory,
+            # timed in turns: staged, unstaged, unstaged, staged
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def window(staged):
+                return lambda: ap._prob_call(ap._fn(dt), g, s, lens, d,
+                                             n_max, band, dt, ins_k, chain,
+                                             stream, staged=staged)
+
+            check(all(torch.equal(a, b) for a, b in
+                      zip(window(True)(), window(False)())),
+                  f"the staged and unstaged window kernels differ ({label})")
+            ms_st = [cuda_ms(window(x), 5) for x in (True, False, False,
+                                                     True)]
         n1 = n_max + 1
         recs = {}
+        bound, bound_by = prob_bound_ms(B, n1, band, d, 4)
+        print(f"[kernel] access_prob {label} float32 B={B} columns={n1} "
+              f"w={d}: {ms_prob:.4f} ms, plain {plain_prob:.2f} ms, bound "
+              f"{bound:.6f} ms ({bound_by}, "
+              f"{prob_ops_per_row(n1, band, d, batched.ML) / n1:.0f} "
+              f"operations per column), {ms_prob / bound:.1f}x bound, max "
+              f"rel diff of p_w, p_w1 {rel_prob:.3g}, max |energy diff| "
+              f"{de_prob:.3g} kcal/mol (all three kernels against the plain "
+              f"chain: {de_three:.3g}) {tag}", flush=True)
+        print(f"[kernel] access_prob {label}: device ms by kernel of one "
+              "call (torch.profiler): " + (", ".join(
+                  f"{k} {v:.4f}"
+                  for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1]))
+                  or "not measured (no device time seen)") + f" {tag}",
+              flush=True)
+        print(f"[kernel] access_prob {label}: stem rows staged in shared "
+              f"memory {ms_st[0]:.4f} / {ms_st[3]:.4f} ms, read from device "
+              f"memory {ms_st[1]:.4f} / {ms_st[2]:.4f} ms (staged, unstaged, "
+              f"unstaged, staged) {tag}", flush=True)
+        recs["access_prob"] = dict(ms=ms_prob, plain_ms=plain_prob,
+                                   bound_ms=bound, bound_by=bound_by,
+                                   err=de_prob)
         for name, ms, plain, rel, de, inside in (
                 ("access_inside", ms_in, plain_in, rel_in, de_all, True),
                 ("access_outside", ms_out, plain_out, rel_out, de_out,
@@ -1504,7 +1710,9 @@ def main() -> int:
     }]
     for name, replaces in (
             ("access_inside", "priblast_tpu/accessibility/batched.py:588,1067"),
-            ("access_outside", "priblast_tpu/accessibility/batched.py:926")):
+            ("access_outside", "priblast_tpu/accessibility/batched.py:926"),
+            ("access_prob",
+             "priblast_tpu/accessibility/batched.py:1111,1175")):
         rec = db_rec[name]
         kernels.append({
             "name": name, "route": "cuda",

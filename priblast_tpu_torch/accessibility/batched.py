@@ -20,6 +20,9 @@ Layout: every per-column weight grid and every stacked state is
   31x31 interior-loop kernel is an einsum and the multiloop span
   accumulation a triangular matmul;
 - ``probability_pass``: window probabilities, vectorized over the grid.
+  On ``cuda`` it runs, with ``make_prob_grids`` and the sum of its terms
+  (``scan_probabilities``), as a hand-written kernel (ops/access_prob.py);
+  the functions here are its plain version.
 
 Every table value that the formulation rounds to float32 is rounded here
 at the same place, so float64 runs agree with the float32-table semantics
@@ -946,11 +949,13 @@ def window_probabilities(w_span: int, min_acc_len: int, n_max: int, dtype,
                          t: Tables | None = None):
     """Unpaired probabilities of every window of size w and w + 1, in
     `dtype`: (p_w, p_w1), each [N+2, B] indexed by 1-based window start.
-    The column scans run through ops/access_scan.py: the two kernels on
-    cuda, their plain versions on the CPU. `t`: make_tables(w_span, dtype)
+    The column scans run through ops/access_scan.py and the probability
+    pass through ops/access_prob.py: the three kernels on cuda, their
+    plain versions on the CPU. `t`: make_tables(w_span, dtype)
     on the batch's device, built here where not given."""
-    # imported here: ops/access_scan.py imports this module
-    from priblast_tpu_torch.ops import access_scan
+    # imported here: ops/access_scan.py and ops/access_prob.py import
+    # this module
+    from priblast_tpu_torch.ops import access_prob, access_scan
 
     if s_padded.shape[0] == 1:
         # a one-row batch runs as two copies of its row: the plain
@@ -971,8 +976,8 @@ def window_probabilities(w_span: int, min_acc_len: int, n_max: int, dtype,
     og, multi1 = outside_inputs(t, s_padded, lengths, n_max, band, dtype, g,
                                 ins)
     outs = access_scan.outside_scan(t, og, multi1, n_max, band, dtype)
-    return scan_probabilities(t, g, s_padded, lengths, min_acc_len, n_max,
-                              band, dtype, ins, outs)
+    return access_prob.window_probs(t, g, s_padded, lengths, min_acc_len,
+                                    n_max, band, dtype, ins, outs)
 
 
 def accessibility_from_probabilities(p_w, p_w1, lengths, w: int,

@@ -13,12 +13,15 @@ include the process start (interpreter, imports, CUDA context); the
 stage seconds are the run's own report. Before the rounds, each checkout
 runs `db` and `ris` once on the tiny test data, which builds its kernels
 and native library, so no build falls in a timed run. Both sides must
-write the same hits (query, target, lengths and base pairs).
+write the same hits (query, target, lengths and base pairs); the count of
+whole output lines (energies included) that differ between the two sides'
+last runs and each side's body sha256 are printed beside that.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import re
 import subprocess
@@ -86,7 +89,17 @@ def main() -> int:
                   "stage s " + " ".join(f"{k} {v:.3f}" for k, v in sorted(
                       {**s_db, **s_ris}.items())), flush=True)
     same = hit_keys(work / "ab_ris_A.txt") == hit_keys(work / "ab_ris_B.txt")
-    print(f"[ab] A and B write the same hits: {same}", flush=True)
+    # the body as chip_smoke.py:body_sha256 reads it: the lines after the
+    # three header lines, each ended by a newline
+    bodies = {k: (work / f"ab_ris_{k}.txt").read_text().splitlines()[3:]
+              for k in sides}
+    differ = sum(a != b for a, b in zip(bodies["A"], bodies["B"])) + abs(
+        len(bodies["A"]) - len(bodies["B"]))
+    sha = {k: hashlib.sha256("".join(line + "\n" for line in v).encode())
+           .hexdigest() for k, v in bodies.items()}
+    print(f"[ab] A and B write the same hits: {same}; {differ} of "
+          f"{len(bodies['B'])} body lines differ (energies included); body "
+          f"sha256 A {sha['A']}, B {sha['B']}", flush=True)
     return 0 if same else 1
 
 

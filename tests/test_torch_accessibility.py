@@ -47,9 +47,9 @@ def tiny_batch(data_dir):
     return seqs, codes, lens, exact
 
 
-def _jax_window_probs(s_np, lens, n_max, dtype_name):
-    """p_w of the JAX engine (the _run_batch_impl passes, before its
-    float32 log)."""
+def _jax_window_probs(s_np, lens, n_max, dtype_name, d=D):
+    """p_w and p_w1 of the JAX engine at window size d (the
+    _run_batch_impl passes, before its float32 log)."""
     dtype = jnp.dtype(dtype_name).type
     band = W_SPAN + 2
     B = s_np.shape[0]
@@ -66,12 +66,20 @@ def _jax_window_probs(s_np, lens, n_max, dtype_name):
                                    ins[5], A, Bf, logZ)
         outs = jb.outside_pass(t, og, ins[4], n_max, band, B, dtype)
         pg = jb.make_prob_grids(t, s, n_max, band, dtype)
-        r = jb.probability_pass(t, g, pg, ins, outs, A, Bf, logZ, D, n_max,
+        r = jb.probability_pass(t, g, pg, ins, outs, A, Bf, logZ, d, n_max,
                                 band, dtype)
-        return r[0] + r[2] + r[4] + r[6]
+        return r[0] + r[2] + r[4] + r[6], r[1] + r[3] + r[5] + r[7]
 
-    return np.asarray(jax.jit(probs)(jnp.asarray(s_np.astype(np.int32)),
-                                     jnp.asarray(lens)))
+    pw, pw1 = jax.jit(probs)(jnp.asarray(s_np.astype(np.int32)),
+                             jnp.asarray(lens))
+    return np.asarray(pw), np.asarray(pw1)
+
+
+def _padded(codes):
+    n_max = codes.shape[1]
+    s_np = np.zeros((codes.shape[0], n_max + jb.ML + 4), np.int64)
+    s_np[:, 1: n_max + 1] = codes
+    return s_np
 
 
 def test_float64_window_energies_match_jax(tiny_batch):
@@ -79,7 +87,7 @@ def test_float64_window_energies_match_jax(tiny_batch):
     n_max = codes.shape[1]
     s_np = np.zeros((len(seqs), n_max + jb.ML + 4), np.int64)
     s_np[:, 1: n_max + 1] = codes
-    pj = _jax_window_probs(s_np, lens, n_max, "float64")
+    pj, _ = _jax_window_probs(s_np, lens, n_max, "float64")
     pt, _ = tb.window_probabilities(W_SPAN, D, n_max, torch.float64,
                                     torch.as_tensor(s_np),
                                     torch.as_tensor(lens.astype(np.int64)))
@@ -90,6 +98,45 @@ def test_float64_window_energies_match_jax(tiny_batch):
         ej = -kT * np.log(pj[win, i]) / 1000
         et = -kT * np.log(pt[win, i]) / 1000
         assert np.abs(ej - et).max() <= 1e-9
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_float64_window_energies_match_jax_at_small_windows(tiny_batch, d):
+    """Windows of d and d + 1 <= 3 nt, where probability_pass spreads the
+    small-loop specials (1,0) .. (2,2) (batched.py:870-877; the JAX
+    package's :1290-1301): both window sizes' energies to 1e-9 kcal/mol
+    in float64."""
+    seqs, codes, lens, _exact = tiny_batch
+    n_max = codes.shape[1]
+    s_np = _padded(codes)
+    pj = _jax_window_probs(s_np, lens, n_max, "float64", d)
+    pt = tb.window_probabilities(W_SPAN, d, n_max, torch.float64,
+                                 torch.as_tensor(s_np),
+                                 torch.as_tensor(lens.astype(np.int64)))
+    kT = tb._linmodel(W_SPAN).sp.kT
+    for k, size in enumerate((d, d + 1)):
+        for i, n in enumerate(lens):
+            win = slice(1, n - size + 2)   # starts x = 1 .. n - size + 1
+            ej = -kT * np.log(pj[k][win, i]) / 1000
+            et = -kT * np.log(pt[k].numpy()[win, i]) / 1000
+            assert np.isfinite(et).all()
+            assert np.abs(ej - et).max() <= 1e-9
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_outputs_match_exact_at_small_windows(tiny_batch, dtype, d):
+    """acc and cond of BatchedRaccess at d = 1 and 2 (the specials'
+    branch) against the native exact engine, within the repo's float32
+    bound of 2e-3 kcal/mol."""
+    seqs, codes, lens, _exact = tiny_batch
+    pa, pc = tb.BatchedRaccess(W_SPAN, d, dtype=dtype,
+                               devices="cpu").run(codes, lens)
+    for i, s in enumerate(seqs):
+        ra, rc = native.raccess(alphabet.access_codes(s), W_SPAN, d)
+        assert np.abs(pa[i, : len(s) - d + 1] - ra[: len(s) - d + 1]).max() \
+            < 2e-3
+        assert np.abs(pc[i, d: len(s)] - rc[d: len(s)]).max() < 2e-3
 
 
 @pytest.mark.parametrize("dtype,tol", [("float64", 5e-6),

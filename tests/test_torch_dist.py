@@ -29,7 +29,8 @@ from priblast_tpu_torch.accessibility import batched as tb  # noqa: E402
 from priblast_tpu_torch.models import db as tdb  # noqa: E402
 from priblast_tpu_torch.models import ris as tris  # noqa: E402
 from priblast_tpu_torch.models import ris_gpu  # noqa: E402
-from priblast_tpu_torch.ops import access_scan, gapped_sweep, nvcc  # noqa: E402
+from priblast_tpu_torch.ops import access_prob, access_scan  # noqa: E402
+from priblast_tpu_torch.ops import gapped_sweep, nvcc  # noqa: E402
 from priblast_tpu_torch.ops import ungapped_extend  # noqa: E402
 from priblast_tpu_torch.parallel import dist  # noqa: E402
 from priblast_tpu_torch.search import fused, seed  # noqa: E402
@@ -111,6 +112,7 @@ def test_launch_counters_count_every_thread(monkeypatch):
     """N threads of M launches each add N * M to each kernel's counter."""
     counters = ((vars(access_scan), "inside_launches"),
                 (vars(access_scan), "outside_launches"),
+                (vars(access_prob), "prob_launches"),
                 (vars(ungapped_extend), "launches"),
                 (vars(gapped_sweep), "launches"))
     for mod, name in counters:

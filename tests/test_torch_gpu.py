@@ -18,6 +18,7 @@ import ungapped_cases as uc
 from priblast_tpu_torch import cli
 from priblast_tpu_torch.accessibility import batched as ab
 from priblast_tpu_torch.models import db as tdb
+from priblast_tpu_torch.ops import access_prob as ap
 from priblast_tpu_torch.ops import access_scan as acs
 from priblast_tpu_torch.ops import gapped_sweep as sweep_op
 from priblast_tpu_torch.ops import native
@@ -433,3 +434,124 @@ def test_access_outside_wrapper_rejects_bad_inputs(bad):
         m1 = m1.double()
     with pytest.raises(ValueError):
         acs.outside_scan(t, og, m1, n_max, 72, torch.float32)
+
+
+def _prob_inputs(dev, dtype=torch.float32, n_extra=0, rows=None):
+    """The probability pass's inputs on `dev`: the scan kernels' (or, on
+    the CPU, their plain versions') planes of _access_batch's rows `rows`
+    (all where None), padded to n_extra columns past the longest."""
+    t, g, s, lens, n_max = _access_batch(dev, dtype=dtype)
+    if rows is not None or n_extra:
+        idx = torch.as_tensor(rows if rows is not None
+                              else range(s.shape[0]), device=dev)
+        n_max += n_extra
+        s = torch.nn.functional.pad(s.index_select(0, idx), (0, n_extra))
+        lens = lens.index_select(0, idx).contiguous()
+        g = ab.make_grids(t, s, lens, n_max, 72, dtype)
+    ins = acs.inside_scan(t, g, lens, n_max, 72, dtype)
+    og, m1 = ab.outside_inputs(t, s, lens, n_max, 72, dtype, g, ins)
+    outs = acs.outside_scan(t, og, m1, n_max, 72, dtype)
+    return t, g, s, lens, n_max, ins, outs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [5, 2])
+@pytest.mark.parametrize("dtype,rtol,etol", [("float64", 1e-12, 1e-9),
+                                             ("float32", 1e-4, 2e-3)])
+def test_probability_kernel_matches_plain_version_on_the_card(dtype, rtol,
+                                                              etol, w):
+    """The probability kernel against scan_probabilities on the card, on
+    the scan kernels' planes of a ragged batch with two all-padding rows,
+    at w = 5 and at w = 2 (the small-loop specials): p_w and p_w1 to rtol
+    (float64: only the order of sums of nonnegative terms differs), the
+    window energies to etol kcal/mol; one launch per call."""
+    dev = _card()
+    dt = ab._DTYPES[dtype]
+    t, g, s, lens, n_max, ins, outs = _prob_inputs(dev, dt)
+    before = ap.prob_launches
+    got = ap.window_probs(t, g, s, lens, w, n_max, 72, dt, ins, outs)
+    ref = ab.scan_probabilities(t, g, s, lens, w, n_max, 72, dt, ins, outs)
+    torch.cuda.synchronize()
+    assert ap.prob_launches == before + 1
+    for a, b in zip(got, ref):
+        err = (a.double() - b.double()).abs()
+        lim = rtol * b.double().abs() + torch.finfo(dt).tiny
+        assert bool((err <= lim).all())
+    kT = ab._linmodel(70).sp.kT
+    for a, b in zip(
+            ab.accessibility_from_probabilities(*got, lens, w, n_max, kT),
+            ab.accessibility_from_probabilities(*ref, lens, w, n_max, kT)):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= etol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_probability_kernel_from_device_memory_on_the_card(dtype):
+    """The window kernel's other path, the stem rows read from device
+    memory (taken where a tile's rows do not fit in shared memory), at
+    w = 5 and 2: the same bits as the staged path (each sum adds the same
+    values in the same order)."""
+    dev = _card()
+    dt = ab._DTYPES[dtype]
+    _t, g, s, lens, n_max, ins, outs = _prob_inputs(dev, dt)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for w in (5, 2):
+            runs = [ap._prob_call(ap._fn(dt), g, s, lens, w, n_max, 72, dt,
+                                  ins, outs, stream, staged=staged)
+                    for staged in (True, False)]
+            torch.cuda.synchronize()
+            for a, b in zip(*runs):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_probability_kernel_row_bits_do_not_depend_on_the_batch_on_the_card(
+        dtype):
+    """Rows 1 and 4 of the ragged batch alone (a batch of two) and the
+    whole batch padded 200 columns further: each row's p_w and p_w1 at its
+    window starts have the same bits as in the batch of seven, at w = 5
+    and w = 2."""
+    dev = _card()
+    dt = ab._DTYPES[dtype]
+    full = _prob_inputs(dev, dt)
+    lens = full[3].tolist()
+    for w in (5, 2):
+        ref = ap.window_probs(*full[:4], w, *full[4:5], 72, dt, *full[5:])
+        for rows, extra in (([1, 4], 0), (None, 200)):
+            part = _prob_inputs(dev, dt, extra, rows)
+            got = ap.window_probs(*part[:4], w, *part[4:5], 72, dt,
+                                  *part[5:])
+            for k, r in enumerate(rows if rows is not None
+                                  else range(len(lens))):
+                for a, b in zip(ref, got):
+                    n = lens[r]
+                    assert torch.equal(a[1: n + 1, r], b[1: n + 1, k])
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "codes",
+                                 "lengths", "window"])
+def test_probability_wrapper_rejects_bad_inputs(bad):
+    t, g, s, lens, n_max, ins, outs = _prob_inputs("cpu")
+    w = 5
+    p_w, p_w1 = ap.window_probs(t, g, s, lens, w, n_max, 72, torch.float32,
+                                ins, outs)
+    assert p_w.shape == p_w1.shape == (n_max + 2, s.shape[0])
+    if bad == "dtype":
+        outs = (*outs[:4], outs[4].double())
+    elif bad == "shape":
+        ins = (*ins[:6], ins[6][:-1], ins[7])
+    elif bad == "contiguous":
+        ins = (ins[0].transpose(0, 1).contiguous().transpose(0, 1),
+               *ins[1:])
+    elif bad == "codes":
+        s = s.int()
+    elif bad == "lengths":
+        lens = lens + n_max
+    else:
+        w = 0
+    with pytest.raises(ValueError):
+        ap.window_probs(t, g, s, lens, w, n_max, 72, torch.float32, ins,
+                        outs)
