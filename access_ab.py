@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""A column-scan kernel against its parent version and variants, on one
-GPU, on the main path's first db batch and first ris batch; then both
-scan kernels as committed on all four of the main path's batches.
+"""An accessibility kernel (a column scan or the probability pass)
+against its parent version and variants, on one GPU, on the main path's
+first db batch and first ris batch; then the three kernels as committed on
+all four of the main path's batches.
 
-    python3 access_ab.py [--kernel outside|inside] [--parent FILE]
+    python3 access_ab.py [--kernel outside|inside|prob] [--parent FILE]
                          [--parent-threads 256] [--reps 5]
-                         [--threads 768,512] [NAME=SRC[@THREADS] ...]
+                         [--threads 768,512] [--tile N]
+                         [NAME=SRC[@THREADS] ...]
 
 Builds, with the wrapper's nvcc flags, for --kernel (default outside):
 the parent's priblast_tpu_torch/csrc/access_<kernel>.cu (--parent, else
@@ -14,8 +16,9 @@ source with the same C interface), and a stamped build (-DACCESS_STAMPS)
 of every source that has the stamp hooks. Each build runs at its own
 threads per CTA: the parent at --parent-threads (what its wrapper
 launched), a variant at @THREADS, else the first --threads (default: the
-wrapper's); the committed one also at the other --threads. The batches
-are those of `chip_smoke.py`'s workload from --seed (its first `db`
+wrapper's); the committed one also at the other --threads; for prob,
+every build but the parent at --tile columns per CTA where given. The
+batches are those of `chip_smoke.py`'s workload from --seed (its first `db`
 batch, 16 x 6,145 columns, and the first `ris` batch, 64 x 1,281). Every
 build must give its plain version's outputs within 1e-4 relative in
 float32 and window energies within 2e-3 kcal/mol:
@@ -24,17 +27,22 @@ float32 and window energies within 2e-3 kcal/mol:
   plain inside planes;
 - inside: the six planes, A and B of `inside_plain` (inside_pass, then
   b_outer_scan); the energies through the plain outside pass on the
-  build's own planes (~12 s per build on the db batch).
+  build's own planes (~12 s per build on the db batch);
+- prob: p_w and p_w1 of `scan_probabilities` on the scan kernels' planes,
+  as on the main path, and their window energies.
 Then all are timed with CUDA events in turns (first to last, then last
-to first).
+to first); for prob also split by launch (window and sum kernel) with
+torch.profiler.
 
-Prints per build and batch: ms, us per column step, x its bound; per
+Prints per build and batch: ms, us per column step, x its bound (prob:
+`chip_smoke.prob_bound_ms`) and, for prob, `[launches]` lines with the
+window and sum kernels' device ms; per
 stamped build the stage split (work: from the previous barrier to the
 last thread's arrival; barrier: from there to thread 0's exit; the inside
 kernel's backward exterior scan is a stage of its own, once per CTA), in
 SM cycles and in us per column step (cycle shares of the measured step);
-`[batches]` lines with both committed kernels on each of the main path's
-four batches (db 16 x 6,145 and 8 x 5,121; ris 64 x 1,281 and 64 x
+`[batches]` lines with the three committed kernels on each of the main
+path's four batches (db 16 x 6,145 and 8 x 5,121; ris 64 x 1,281 and 64 x
 1,025) and their sums, launches x (time - bound); and one JSON object
 last.
 """
@@ -58,7 +66,7 @@ PLANE_RTOL, ENERGY_TOL = 1e-4, 2e-3
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", nargs="*", metavar="NAME=SRC[@THREADS]")
-    ap.add_argument("--kernel", choices=("outside", "inside"),
+    ap.add_argument("--kernel", choices=("outside", "inside", "prob"),
                     default="outside")
     ap.add_argument("--parent", help="the parent's access_<kernel>.cu")
     ap.add_argument("--parent-threads", type=int, default=256)
@@ -68,6 +76,9 @@ def main() -> int:
                     help="threads per CTA of the committed build, "
                          "comma-separated (default: the wrapper's); the "
                          "first is every variant's default")
+    ap.add_argument("--tile", type=int,
+                    help="prob: columns per CTA of every build but the "
+                         "parent's (default: the wrapper's)")
     args = ap.parse_args()
 
     import numpy as np
@@ -80,6 +91,7 @@ def main() -> int:
     import chip_smoke as cs
     from priblast_tpu_torch.accessibility import batched
     from priblast_tpu_torch.models import db_gpu
+    from priblast_tpu_torch.ops import access_prob as aprob
     from priblast_tpu_torch.ops import access_scan as acs
     from priblast_tpu_torch.ops import native, nvcc
     from priblast_tpu_torch.utils import alphabet
@@ -91,9 +103,10 @@ def main() -> int:
     out_dir = HERE / "build" / "access_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     kern = args.kernel
-    inside = kern == "inside"
+    inside, prob = kern == "inside", kern == "prob"
     threads = [int(x) for x in (args.threads or str(
-        acs.THREADS if inside else acs.OUTSIDE_THREADS)).split(",")]
+        aprob.THREADS if prob else acs.THREADS if inside
+        else acs.OUTSIDE_THREADS)).split(",")]
 
     parent = (Path(args.parent) if args.parent
               else out_dir / f"parent_{kern}.cu")
@@ -102,7 +115,8 @@ def main() -> int:
             ["git", "show", f"HEAD:{SRC_REL.format(kern)}"], cwd=HERE,
             check=True, capture_output=True, text=True).stdout)
     specs = {"parent": parent,
-             "committed": acs.SRC_INSIDE if inside else acs.SRC_OUTSIDE}
+             "committed": aprob.SRC if prob else acs.SRC_INSIDE if inside
+             else acs.SRC_OUTSIDE}
     own = {"parent": args.parent_threads, "committed": threads[0]}
     for v in args.variants:
         name, _, spec = v.partition("=")
@@ -126,8 +140,10 @@ def main() -> int:
                 [nvcc.shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc",
                  *flags, "-Xptxas", "-v", "-o", str(out_dir / f"{name}.so"),
                  str(src)], capture_output=True, text=True)
+            # the float kernel (prob: the window kernel, rows staged)
+            key = "window_kernelIfLb1E" if prob else "IfE"
             for part in r.stderr.split("Compiling entry function")[1:]:
-                if "IfE" in part.split("\n")[0]:
+                if key in part.split("\n")[0]:
                     regs[name] = " ".join(
                         ln.split(":", 1)[-1].strip()
                         for ln in part.splitlines()
@@ -190,6 +206,7 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     report = {"card": card, "threads": own, "registers": regs,
               "batches": {}}
+    kernel_names = ("window_kernel", "sum_kernel")
     bad = set(failed)  # builds that fail or differ from the plain version
     no_launch = set()  # (build, threads) refused at launch
 
@@ -232,6 +249,25 @@ def main() -> int:
 
                 def run_energies(out):
                     return energies(out, plain_outside(out))
+            elif prob:
+                ins = acs.inside_scan(t, g, lens, n_max, band, dt)
+                og, m1 = batched.outside_inputs(t, s, lens, n_max, band, dt,
+                                                g, ins)
+                outs = acs.outside_scan(t, og, m1, n_max, band, dt)
+                ref = batched.scan_probabilities(t, g, s, lens, dmin, n_max,
+                                                 band, dt, ins, outs)
+
+                def run_energies(out):
+                    return batched.accessibility_from_probabilities(
+                        *out, lens, dmin, n_max, kT)
+
+                e_ref = run_energies(ref)
+
+                def call(name, nt):
+                    return aprob._prob_call(
+                        libs[name].access_prob_f32, g, s, lens, dmin, n_max,
+                        band, dt, ins, outs, stream, nt,
+                        None if name == "parent" else args.tile)
             else:
                 ins = acs.inside_scan(t, g, lens, n_max, band, dt)
                 og, m1 = batched.outside_inputs(t, s, lens, n_max, band, dt,
@@ -278,7 +314,9 @@ def main() -> int:
                           file=sys.stderr)
                     bad.add(name)
 
-            bound, bound_by = cs.access_bound_ms(B, n1, band, 4, inside)
+            bound, bound_by = (cs.prob_bound_ms(B, n1, band, dmin, 4)
+                               if prob else
+                               cs.access_bound_ms(B, n1, band, 4, inside))
             times = {}
             runs = [(n, nt) for n, nt in runs
                     if n not in bad and (n, nt) not in no_launch]
@@ -293,6 +331,15 @@ def main() -> int:
                           flush=True)
 
             splits = {}
+            for name, nt in runs if prob else ():
+                key = name if nt == own[name] else f"{name}@{nt}"
+                by = cs.device_ms_by_kernel(lambda: call(name, nt),
+                                            kernel_names)
+                splits[key] = by
+                print(f"[launches] {bname} {key}: " + (", ".join(
+                    f"{k} {by[k]:.4f} ms" for k in kernel_names if k in by)
+                    or "not measured (no device time seen)")
+                    + f" ({card})", flush=True)
             for name, lib in libs.items():
                 if (not name.endswith("+stamps") or name in bad
                         or (name, own[name]) in no_launch):
@@ -325,9 +372,10 @@ def main() -> int:
             B=B, columns=n1, bound_ms=bound, bound_by=bound_by,
             times_ms=times, splits=splits)
 
-    # both committed kernels, through their wrappers, on all four batches
+    # the three committed kernels, through their wrappers, on all four
+    # batches
     sums = {k: dict(ms=0.0, bound_ms=0.0, launches=0)
-            for k in ("inside", "outside")}
+            for k in ("inside", "outside", "prob")}
     report["main_path"] = []
     for bname, blist in (("db", db_batches), ("ris", ris_batches)):
         for k, (codes, lengths) in enumerate(blist):
@@ -340,12 +388,18 @@ def main() -> int:
                 og, m1 = batched.outside_inputs(t, s, lens, n_max, band, dt,
                                                 g, ins)
                 oargs = (t, og, m1, n_max, band, dt)
+                outs = acs.outside_scan(*oargs)
+                pargs = (t, g, s, lens, dmin, n_max, band, dt, ins, outs)
                 for kname, fn, args_ in (("inside", acs.inside_scan, iargs),
                                          ("outside", acs.outside_scan,
-                                          oargs)):
+                                          oargs),
+                                         ("prob", aprob.window_probs,
+                                          pargs)):
                     ms = cs.cuda_ms(lambda: fn(*args_), args.reps)
-                    bound, bound_by = cs.access_bound_ms(
-                        B, n1, band, 4, kname == "inside")
+                    bound, bound_by = (
+                        cs.prob_bound_ms(B, n1, band, dmin, 4)
+                        if kname == "prob" else cs.access_bound_ms(
+                            B, n1, band, 4, kname == "inside"))
                     sums[kname]["ms"] += ms
                     sums[kname]["bound_ms"] += bound
                     sums[kname]["launches"] += 1

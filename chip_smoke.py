@@ -493,6 +493,44 @@ def lanes_one_per_hit(st) -> float:
     return float(st.sum()) / (32 * float(warps.max(dim=1).values.sum()))
 
 
+def prob_lanes(band: int, w: int, ml: int) -> dict:
+    """Lane efficiency of the probability window kernel
+    (csrc/access_prob.cu) on a column far from both ends of its sequence:
+    the multiply-adds of its interior-loop sums and bulges, both sides,
+    over its 8 lanes x the busiest lane's multiply-add slots, with the
+    split the kernel uses: the spans j = 0 .. band-1-u of each (u, side)
+    in blocks of J consecutive spans (the least odd J with 8 J covering
+    them, at most 9; blocks blk, blk + 8, ... to lane blk), each block
+    ML - u steps wide with its masked terms, and the bulge's spans j = blk,
+    blk + 8, ...; beside it the split of one lane per loop size (a lane
+    runs its side's loop to the warp's longest).
+    Returns dict(efficiency, mean_terms, max_terms, slots, one_per_u)."""
+    lanes, max_j = 8, 9  # kLanes, kMaxJ
+    terms, slots = [0] * lanes, [0] * lanes
+    per_u = []
+    for u in range(w, ml + 1):
+        n, T = band - 1 - u, ml - u
+        if n < 0:
+            continue
+        J = -(-(n + 1) // lanes)
+        J = min(J + (J % 2 == 0), max_j)
+        own = sum(min(T, j) for j in range(1, n + 1)) + (n + 1) * (u >= 2)
+        per_u.append(own)
+        for blk in range(lanes):
+            for jb in range(blk * J, n + 1, lanes * J):
+                terms[blk] += 2 * sum(min(T, j) for j in range(jb, jb + J)
+                                      if 1 <= j <= n)
+                slots[blk] += 2 * J * T
+            if u >= 2:
+                bulge = len(range(blk, n + 1, lanes))
+                terms[blk] += 2 * bulge
+                slots[blk] += 2 * bulge
+    return dict(efficiency=sum(terms) / (lanes * max(slots)),
+                mean_terms=sum(terms) / lanes, max_terms=max(terms),
+                slots=max(slots),
+                one_per_u=sum(per_u) / (32 * max(per_u)) if per_u else 1.0)
+
+
 def device_ms_by_kernel(fn, names: tuple[str, ...] = ()) -> dict:
     """Device time (ms) of each kernel that one call of `fn` launches,
     summed by name, from torch.profiler; empty where the profiler saw no
@@ -1664,6 +1702,13 @@ def main() -> int:
                   for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1]))
                   or "not measured (no device time seen)") + f" {tag}",
               flush=True)
+        lanes = prob_lanes(band, d, batched.ML)
+        print(f"[kernel] access_prob {label}: window kernel lane efficiency "
+              f"{lanes['efficiency']:.4f} (multiply-adds of a column over 8 "
+              f"lanes x the busiest lane's {lanes['slots']} slots; terms "
+              f"per lane mean {lanes['mean_terms']:.1f}, max "
+              f"{lanes['max_terms']}), one lane per loop size "
+              f"{lanes['one_per_u']:.4f} {tag}", flush=True)
         print(f"[kernel] access_prob {label}: stem rows staged in shared "
               f"memory {ms_st[0]:.4f} / {ms_st[3]:.4f} ms, read from device "
               f"memory {ms_st[1]:.4f} / {ms_st[2]:.4f} ms (staged, unstaged, "

@@ -27,9 +27,11 @@ from priblast_tpu_torch.accessibility import batched as ab
 from priblast_tpu_torch.ops import access_scan, nvcc
 
 SRC = Path(__file__).resolve().parents[1] / "csrc" / "access_prob.cu"
-# threads per CTA of the window kernel (a warp per column) and its columns
-# per CTA: the stem rows of a tile and its halo fit in shared memory
-THREADS = 256
+# threads per CTA of the window kernel (a warp per 4 columns) and its
+# columns per CTA: the stem rows of a tile and its halo fit in shared memory,
+# two CTAs to an SM in float32 (on the H100 as fast as 256 threads at 64
+# columns, faster than 256 at 32 or 128 at 16: access_ab.py --tile)
+THREADS = 128
 TILE = {torch.float32: 32, torch.float64: 16}
 
 prob_launches = 0  # kernel launches by window_probs(); plain calls not counted
