@@ -11,10 +11,13 @@ where missing), makes the CUDA context, and then goes twice over every
 batch that `ris` (or `db`) plans for those sequences (`plan_batches`), as
 `BatchedRaccess.run` does, synchronising after each part:
 - h2d: the host-to-device copy;
-- grids: the tables and grids (PyTorch);
-- load_inside, inside: the inside scan kernel's library (build check and
-  dlopen, `ops/access_scan.py:_lib`), then its call; likewise
-  outside_grids (PyTorch), load_outside and outside;
+- load_grids, grids: the grid kernel's library (build check and dlopen,
+  `ops/access_grids.py:_lib`), then the tables and the inside grids'
+  launch (`inside_grids`);
+- load_inside, inside: the inside scan kernel's library
+  (`ops/access_scan.py:_lib`), then its call; likewise outside_grids
+  (the grid kernel's outside launch, through `outside_inputs`),
+  load_outside and outside;
 - load_prob: the probability kernel's library (`ops/access_prob.py:_lib`);
 - probability_pass: the probability kernel's call (`window_probs`);
 - epilogue: accessibility_from_probabilities and the copy back.
@@ -34,8 +37,8 @@ from collections import defaultdict
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-PARTS = ("h2d", "grids", "load_inside", "inside", "outside_grids",
-         "load_outside", "outside", "load_prob",
+PARTS = ("h2d", "load_grids", "grids", "load_inside", "inside",
+         "outside_grids", "load_outside", "outside", "load_prob",
          "probability_pass", "epilogue")
 
 
@@ -46,7 +49,7 @@ def child(work: Path, fa: str) -> None:
     sys.path.insert(0, str(REPO))
     from priblast_tpu_torch.accessibility import batched as ab
     from priblast_tpu_torch.models import db_gpu
-    from priblast_tpu_torch.ops import access_prob
+    from priblast_tpu_torch.ops import access_grids, access_prob
     from priblast_tpu_torch.ops import access_scan as acs
     from priblast_tpu_torch.utils import alphabet, fasta
     from priblast_tpu_torch.utils.params import DbParams
@@ -88,9 +91,10 @@ def child(work: Path, fa: str) -> None:
                                            torch.as_tensor(lens_np,
                                                            device=dev)))
             with torch.no_grad():
+                part("load_grids", access_grids._lib)
                 t, g = part("grids", lambda: (
                     tb := ab.make_tables(w, dt, dev),
-                    ab.make_grids(tb, s, lens, n_max, band, dt)))
+                    access_grids.inside_grids(tb, s, lens, n_max, band, dt)))
                 part("load_inside", lambda: acs._lib("inside"))
                 ins = part("inside", lambda: acs.inside_scan(
                     t, g, lens, n_max, band, dt))

@@ -7,10 +7,10 @@ Phases (any failure ends the run with a non-zero exit code):
   1. device: the card's name and power limit, torch and CUDA versions, the
      host's core count (os.cpu_count() and the affinity mask), and the
      devices `--device cuda` gives this process (every card);
-  2. build: the native host library (g++) and the five CUDA kernel
+  2. build: the native host library (g++) and the six CUDA kernel
      sources (nvcc, sm_90a: the gapped extension, the ungapped extension,
-     the accessibility inside scan, outside scan and probability pass),
-     all from this checkout, started together;
+     the accessibility weight grids, inside scan, outside scan and
+     probability pass), all from this checkout, started together;
   3. main path at full size: a seeded workload the size of bench.py's
      (100 queries of ~1,000 nt against 20 db sequences of ~5,000 nt,
      first-order Markov sequences of transcript-like composition) through
@@ -18,8 +18,10 @@ Phases (any failure ends the run with a non-zero exit code):
      pinned to the device chain (PRIBLAST_DEVICE_EXTEND=1), whose search is
      the fused path (host seed DFS, device expansion, the ungapped kernel,
      threshold, host mid, the gapped kernel, host finish) and whose
-     accessibility runs the two scan kernels and the probability kernel;
-     the five kernels' launch counts, the stage seconds (`ris.fused` split into its
+     accessibility runs the grid kernel's two launches, the two scan
+     kernels and the probability kernel; the kernels' launch counts (and
+     the calls of the grids' plain versions, which must be none), the
+     stage seconds (`ris.fused` split into its
      synchronised sub-stages), the peak device memory, and the mid stage's
      seconds and CPU seconds are read around that run; then the gapped
      kernel's overflow: the hits past max_ext, the host fallback's seconds
@@ -69,7 +71,7 @@ Phases (any failure ends the run with a non-zero exit code):
      chain) of the main path's workload through their Python entry points
      with `devices` = every card, or [cuda:0, cuda:0] on a machine of one
      card (two shards on the card, each on its own thread); the db files
-     and the ris body byte for byte against the main path's, the four
+     and the ris body byte for byte against the main path's, the
      kernels' launches equal to the plan (one per non-empty shard of every
      accessibility batch and pair block, two per non-empty shard of every
      gapped hit batch), the walls beside the main path's; then
@@ -90,10 +92,13 @@ Phases (any failure ends the run with a non-zero exit code):
      with the most steps, each among three with the fewest), with the
      steps per hit and the lane efficiency of one thread per hit (steps
      over 32 x the sum of each warp's largest step count);
-  7. the accessibility kernels (the inside pass with both exterior
-     scans; the outside pass; the probability pass) against their plain
-     versions on the main path's first db batch and its first ris batch
-     (their own shapes): each scan kernel's planes against its plain
+  7. the accessibility kernels (the weight grids' two launches; the
+     inside pass with both exterior scans; the outside pass; the
+     probability pass) against their plain versions on the main path's
+     first db batch and its first ris batch (their own shapes): the grid
+     launches' planes bit for bit against make_grids and
+     make_outside_grids (the seed within 2 ulps); each scan kernel's
+     planes against its plain
      version's on the same inputs, and the window energies of the kernel
      chain against the plain chain's (2e-3 kcal/mol); the probability
      kernel's p_w and p_w1 against scan_probabilities on the scan
@@ -133,20 +138,26 @@ ACCESS_TOL = 2e-3
 # relative limit of each scan kernel's planes against its plain version's
 # in float32, as tests/test_torch_access_emu.py holds them
 PLANE_RTOL = 1e-4
+# the grid kernels' seed plane against make_outside_grids', in ulps (expf
+# may round otherwise than PyTorch's exp); every other plane bit for bit
+SEED_ULPS = 2
 # integer and float operations of one unpaired step of the ungapped kernel
 # (csrc/ungapped_extend.cu: position updates, 6 clamped loads with their
 # address arithmetic, the break tests, 5 float adds, the pair type, the
 # dropout test); a paired step adds its loop energy
 UNGAPPED_OPS_PER_STEP = 40
 # the port's CLI in a process of its own ([multiproc]), then one JSON line
-# of the launch counts of its five kernels over that run
+# of the launch counts of its kernels over that run
 COUNTING_CLI = """
 import json, sys
 from priblast_tpu_torch import cli
-from priblast_tpu_torch.ops import (access_prob, access_scan, gapped_sweep,
-                                    ungapped_extend)
+from priblast_tpu_torch.ops import (access_grids, access_prob, access_scan,
+                                    gapped_sweep, ungapped_extend)
 cli.main(sys.argv[1:])
-print(json.dumps({"access_inside": access_scan.inside_launches,
+print(json.dumps({"access_grids_inside": access_grids.inside_grids_launches,
+                  "access_grids_outside":
+                      access_grids.outside_grids_launches,
+                  "access_inside": access_scan.inside_launches,
                   "access_outside": access_scan.outside_launches,
                   "access_prob": access_prob.prob_launches,
                   "ungapped_extend": ungapped_extend.launches,
@@ -721,6 +732,40 @@ def prob_ops_per_row(n1: int, band: int, w: int, ml: int) -> int:
     return int(ops.sum())
 
 
+def grids_bound_ms(B: int, n1: int, band: int, S: int, item: int,
+                   inside: bool, dtype: str = "float32"):
+    """Least time the card could take for one launch of the weight grids
+    (csrc/access_grids.cu) over B sequences, n1 columns and the band
+    (`item` bytes per value): the larger of the bytes it must move over
+    the memory rate and its operations over the peak rate of the dtype.
+
+    Bytes, each counted once: the codes [B, S] (int64) and lengths read,
+    the tables (bp and rtype[bp], stack, the two mismatch tables, int11,
+    int21, int22, two dangle tables, AU, two rows of the band; 4 bytes a
+    value); the planes written: inside 15 in the dtype and 2 bool,
+    outside 14 and 2, which also reads multi2 [N+1, B, band], A and B
+    [N+1, B] and logZ.
+    Operations per cell, floating point only: inside 14 (the dangle's two
+    products, the hairpin weight's, mlclose's two, the six specials' and
+    ext_dot's), outside 17 (the seed's three adds, the product d lsig and
+    the exp; contW's product, mlclose_o's two, the six specials', the
+    last span's mask).
+
+    Returns (bound ms, "bytes" or "operations")."""
+    cells = B * n1 * band
+    tables = 2 * 25 + 49 + 2 * 175 + 8 * 8 * (25 + 125 + 625) + 2 * 35 + 7
+    nbytes = B * S * 8 + B * 8 + 4 * (tables + 2 * band)
+    if inside:
+        nbytes += cells * (15 * item + 2)
+        ops = 14 * cells
+    else:
+        nbytes += cells * (15 * item + 2) + (2 * n1 + 1) * B * item
+        ops = 17 * cells
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -739,6 +784,7 @@ def main() -> int:
     from priblast_tpu_torch.accessibility import batched
     from priblast_tpu_torch.models import ris as ris_model
     from priblast_tpu_torch.models import ris_gpu
+    from priblast_tpu_torch.ops import access_grids as ag
     from priblast_tpu_torch.ops import access_prob as ap
     from priblast_tpu_torch.ops import access_scan as acs
     from priblast_tpu_torch.ops import gapped_sweep, native
@@ -778,13 +824,27 @@ def main() -> int:
     builds = {"native": native.build, "gapped_extend": gapped_sweep.build,
               "ungapped_extend": uop.build, "access_inside": acs.build_inside,
               "access_outside": acs.build_outside,
-              "access_prob": ap.build}
+              "access_prob": ap.build, "access_grids": ag.build}
     with cf.ThreadPoolExecutor(len(builds)) as ex:
         futs = {k: ex.submit(timed, fn) for k, fn in builds.items()}
         built = {k: f.result() for k, f in futs.items()}
     print("[build] " + " | ".join(f"{k} {so.name} {t:.1f}s"
                                   for k, (so, t) in built.items()),
           flush=True)
+
+    # the accessibility kernels' launch counters, in the order of a batch
+    access_counters = {"access_grids_inside": (ag, "inside_grids_launches"),
+                       "access_inside": (acs, "inside_launches"),
+                       "access_grids_outside": (ag, "outside_grids_launches"),
+                       "access_outside": (acs, "outside_launches"),
+                       "access_prob": (ap, "prob_launches")}
+
+    def access_counts() -> dict:
+        return {k: getattr(m, a) for k, (m, a) in access_counters.items()}
+
+    def zero_access_counts() -> None:
+        for m, a in access_counters.values():
+            setattr(m, a, 0)
 
     # ---- 3. main path at full size -----------------------------------------
     work = REPO / "build" / "chip_smoke"
@@ -809,6 +869,17 @@ def main() -> int:
     mid0 = pipeline.mid_stage
     fb_submit0 = pipeline.OverflowFallback.submit
     fb_patch0 = pipeline.OverflowFallback.patch
+    # calls of the grids' plain versions (none where the card runs them)
+    plain_grids = Counter()
+    grids0, ogrids0 = batched.make_grids, batched.make_outside_grids
+
+    def grids_rec(*a, **k):
+        plain_grids["make_grids"] += 1
+        return grids0(*a, **k)
+
+    def ogrids_rec(*a, **k):
+        plain_grids["make_outside_grids"] += 1
+        return ogrids0(*a, **k)
 
     def run_rec(self, codes, lengths):
         acc_devices.update(str(d) for d in self.devices)
@@ -865,6 +936,7 @@ def main() -> int:
     pipeline.mid_stage = mid_rec
     pipeline.OverflowFallback.submit = fb_submit_rec
     pipeline.OverflowFallback.patch = fb_patch_rec
+    batched.make_grids, batched.make_outside_grids = grids_rec, ogrids_rec
 
     db_gpu, out_gpu = work / "db_gpu", work / "ris_gpu.txt"
     # the main path is the device chain: the router's default, auto, may
@@ -873,7 +945,7 @@ def main() -> int:
     prof.reset()
     torch.cuda.reset_peak_memory_stats()
     gapped_sweep.launches = uop.launches = 0
-    acs.inside_launches = acs.outside_launches = ap.prob_launches = 0
+    zero_access_counts()
     t0 = time.perf_counter()
     cli.main(["db", "-i", str(work / "db.fa"), "-o", str(db_gpu)])
     t_db = time.perf_counter() - t0
@@ -883,9 +955,7 @@ def main() -> int:
               str(db_gpu)])
     t_ris = time.perf_counter() - t0
     launches, ulaunches = gapped_sweep.launches, uop.launches
-    alaunches = {"access_inside": acs.inside_launches,
-                 "access_outside": acs.outside_launches,
-                 "access_prob": ap.prob_launches}
+    alaunches = access_counts()
     stages = prof.snapshot()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     batched.BatchedRaccess.run = run0
@@ -897,6 +967,7 @@ def main() -> int:
     pipeline.mid_stage = mid0
     pipeline.OverflowFallback.submit = fb_submit0
     pipeline.OverflowFallback.patch = fb_patch0
+    batched.make_grids, batched.make_outside_grids = grids0, ogrids0
 
     check(acc_devices == {"cuda:0"}, f"accessibility ran on {acc_devices}")
     check("ris.fused.ungapped" in stages,
@@ -909,6 +980,8 @@ def main() -> int:
               "accessibility batches")
     check(0 < n_db_batches < len(access_batches),
           "db or ris ran no accessibility batch")
+    check(not plain_grids, f"the grids' plain versions ran on the main path: "
+          f"{dict(plain_grids)}")
     gpu_lines = body(out_gpu)
     check(len(gpu_lines) > 100, f"only {len(gpu_lines)} hits")
     for line in gpu_lines:
@@ -918,12 +991,13 @@ def main() -> int:
     print(f"[main] db {db_nt} nt in {t_db:.3f}s = {db_nt / t_db:.1f} nt/s; "
           f"ris {N_Q} queries in {t_ris:.3f}s = {N_Q / t_ris:.4f} q/s; "
           f"{len(gpu_lines)} hits; kernel launches: ungapped {ulaunches}, "
-          f"gapped {launches}, access_inside "
-          f"{alaunches['access_inside']}, access_outside "
-          f"{alaunches['access_outside']}, access_prob "
-          f"{alaunches['access_prob']} ({n_db_batches} db + "
-          f"{len(access_batches) - n_db_batches} ris batches); peak device "
-          f"memory {peak_gb:.2f} GB {tag}",
+          f"gapped {launches}, "
+          + ", ".join(f"{k} {n}" for k, n in alaunches.items())
+          + f" ({n_db_batches} db + {len(access_batches) - n_db_batches} ris "
+          f"batches; plain make_grids / make_outside_grids calls "
+          f"{plain_grids['make_grids']} / "
+          f"{plain_grids['make_outside_grids']}); peak device memory "
+          f"{peak_gb:.2f} GB {tag}",
           flush=True)
     print("[main] stage seconds " + json.dumps(
         {k: round(v, 4) for k, v in sorted(stages.items())}) + f" {tag}",
@@ -1151,7 +1225,7 @@ def main() -> int:
         just before it (read just after by the caller)."""
         os.environ["PRIBLAST_DEVICE_EXTEND"] = mode
         gapped_sweep.launches = uop.launches = 0
-        acs.inside_launches = acs.outside_launches = ap.prob_launches = 0
+        zero_access_counts()
         t0 = time.perf_counter()
         cli.main(["ris", "-i", str(work / "q.fa"), "-o", str(out), "-d",
                   str(db_gpu)])
@@ -1159,11 +1233,10 @@ def main() -> int:
 
     def scans_ran(phase: str) -> None:
         n_ris = len(access_batches) - n_db_batches
-        check(acs.inside_launches == acs.outside_launches
-              == ap.prob_launches == n_ris,
+        counts = access_counts()
+        check(all(n == n_ris for n in counts.values()),
               f"{phase}: the accessibility kernels launched "
-              f"{acs.inside_launches} / {acs.outside_launches} / "
-              f"{ap.prob_launches} times for {n_ris} ris batches")
+              f"{json.dumps(counts)} times for {n_ris} ris batches")
 
     out_host = work / "ris_host.txt"
     t_he = run_ris("0", out_host)
@@ -1338,9 +1411,9 @@ def main() -> int:
     print(f"[multiproc] kernel launches per process: db {json.dumps(c_db)}; "
           f"ris {json.dumps(c_ris)}", flush=True)
     for step, counts, names in (
-            ("db", c_db, ("access_inside", "access_outside", "access_prob")),
-            ("ris", c_ris, ("access_inside", "access_outside", "access_prob",
-                            "ungapped_extend", "gapped_extend"))):
+            ("db", c_db, tuple(access_counters)),
+            ("ris", c_ris, (*access_counters, "ungapped_extend",
+                            "gapped_extend"))):
         for i, c in enumerate(counts):
             check(all(c[k] > 0 for k in names), f"two-process {step}: "
                   f"process {i} launched no {[k for k in names if not c[k]]}")
@@ -1376,7 +1449,7 @@ def main() -> int:
     fused._WaveBuffers.__init__ = wb_rec
     pipeline.gapped_stage = hits_rec
     gapped_sweep.launches = uop.launches = 0
-    acs.inside_launches = acs.outside_launches = ap.prob_launches = 0
+    zero_access_counts()
     try:
         t0 = time.perf_counter()
         db_model.run(DbParams(input=str(work / "db.fa"),
@@ -1391,9 +1464,7 @@ def main() -> int:
         batched.BatchedRaccess.run = run0
         fused._WaveBuffers.__init__ = wb_init0
         pipeline.gapped_stage = gstage0
-    got_launches = {"access_inside": acs.inside_launches,
-                    "access_outside": acs.outside_launches,
-                    "access_prob": ap.prob_launches,
+    got_launches = {**access_counts(),
                     "ungapped_extend": uop.launches,
                     "gapped_extend": gapped_sweep.launches}
 
@@ -1404,8 +1475,7 @@ def main() -> int:
     block = min(fused.block_cap(d) for d in dist.distinct(devs))
     gcap = pipeline.gapped_cap(devs)
     n_access = sum(parts(b) for b in sizes["rows"])
-    plan = {"access_inside": n_access, "access_outside": n_access,
-            "access_prob": n_access,
+    plan = {**dict.fromkeys(access_counters, n_access),
             "ungapped_extend": sum(parts(min(block, n - o))
                                    for n in sizes["pairs"]
                                    for o in range(0, n, block)),
@@ -1584,6 +1654,22 @@ def main() -> int:
             *pw, lens, p.min_accessible_length, n_max,
             batched._linmodel(p.maximal_span).sp.kT)
 
+    def grids_diff(got, ref):
+        """(the planes that differ but the seed, the seed's largest
+        distance in ulps, the largest |got - ref| over the float planes)
+        of two grids tuples."""
+        differ, ulps, err = [], 0, 0.0
+        for name, a, b in zip(ref._fields, got, ref):
+            if name == "seed":
+                it = torch.int32 if a.dtype == torch.float32 else torch.int64
+                ulps = int((a.view(it).long() - b.view(it).long()).abs()
+                           .max())
+            elif not torch.equal(a, b):
+                differ.append(name)
+            if a.is_floating_point():
+                err = max(err, float((a.double() - b.double()).abs().max()))
+        return differ, ulps, err
+
     def energy_diff(a, b):
         return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
@@ -1596,15 +1682,17 @@ def main() -> int:
         return out, s0.elapsed_time(s1)
 
     def hold_access(label, codes, lengths):
-        """The three accessibility kernels against their plain versions on
-        one batch of the main path, float32 as it runs: each scan kernel's
-        planes against its plain version's on the same inputs (max
-        relative error), the window energies with the outside kernel alone
-        and with both scan kernels against the plain chain (kcal/mol); the
+        """The accessibility kernels against their plain versions on one
+        batch of the main path, float32 as it runs: the grid kernel's two
+        launches bit for bit (the seed within SEED_ULPS ulps); each scan
+        kernel's planes against its plain version's on the same inputs
+        (max relative error), the window energies with the outside kernel
+        alone and with the grid and scan kernels against the plain chain
+        (kcal/mol); the
         probability kernel's p_w and p_w1 against scan_probabilities on the
         scan kernels' planes (max relative error) and its window energies
         (kcal/mol), alone and with the scan kernels against the plain
-        chain; then all three timed."""
+        chain; then all timed."""
         dt, w, d = torch.float32, p.maximal_span, p.min_accessible_length
         band, (B, n_max) = w + 2, codes.shape
         s_np = np.zeros((B, n_max + batched.ML + 4), np.int64)
@@ -1613,18 +1701,47 @@ def main() -> int:
         lens = torch.as_tensor(lengths.astype(np.int64), device=dev)
         with torch.no_grad():
             t = batched.make_tables(w, dt, dev)
-            g = batched.make_grids(t, s, lens, n_max, band, dt)
+            # the two grid launches against their plain versions on the
+            # same inputs: the codes, and for the outside grids the plain
+            # inside chain's multi2, A, B and logZ
+            gargs = (t, s, lens, n_max, band, dt)
+            g = batched.make_grids(*gargs)
+            g_k = ag.inside_grids(*gargs)
             args = (t, g, lens, n_max, band, dt)
-            ins_k = acs.inside_scan(*args)
             ins_p, plain_in = timed_once(lambda: acs.inside_plain(*args))
-            og, m1 = batched.outside_inputs(t, s, lens, n_max, band, dt, g,
-                                            ins_p)
-            oargs = (t, og, m1, n_max, band, dt)
+            oin = (g, ins_p[5], ins_p[6], ins_p[7],
+                   ins_p[6].gather(0, lens[None, :])[0])
+            og = batched.make_outside_grids(*gargs, *oin)
+            og_k = ag.outside_grids(*gargs, *oin)
+            torch.cuda.synchronize()
+            diff_gi, _, err_gi = grids_diff(g_k, g)
+            diff_go, seed_ulps, err_go = grids_diff(og_k, og)
+            check(not diff_gi and not diff_go and seed_ulps <= SEED_ULPS,
+                  f"grid kernels differ from their plain versions: inside "
+                  f"{diff_gi}, outside {diff_go}, seed {seed_ulps} ulps "
+                  f"({label})")
+            ms_gi = cuda_ms(lambda: ag.inside_grids(*gargs), 20)
+            ms_go = cuda_ms(lambda: ag.outside_grids(*gargs, *oin), 20)
+            # the launches alone, without the wrapper's checks
+            dev_g = {**device_ms_by_kernel(lambda: ag.inside_grids(*gargs),
+                                           ("inside_kernel",)),
+                     **device_ms_by_kernel(
+                         lambda: ag.outside_grids(*gargs, *oin),
+                         ("outside_kernel",))}
+            plain_gi = cuda_ms(lambda: batched.make_grids(*gargs), 1)
+            plain_go = cuda_ms(
+                lambda: batched.make_outside_grids(*gargs, *oin), 1)
+            # the scan kernels on the grid kernels' planes (the inside
+            # grids' bits are the plain version's), the outside kernel on
+            # the plain outside grids, as its plain version
+            ins_k = acs.inside_scan(t, g_k, lens, n_max, band, dt)
+            oargs = (t, og, ins_p[4], n_max, band, dt)
             outs_k = acs.outside_scan(*oargs)
             outs_p, plain_out = timed_once(lambda: acs.outside_plain(*oargs))
-            og_k, m1_k = batched.outside_inputs(t, s, lens, n_max, band, dt,
-                                                g, ins_k)
-            chain = acs.outside_scan(t, og_k, m1_k, n_max, band, dt)
+            # the kernel chain: grids and scans from the kernels
+            og_c, m1_k = batched.outside_inputs(t, s, lens, n_max, band, dt,
+                                                g_k, ins_k)
+            chain = acs.outside_scan(t, og_c, m1_k, n_max, band, dt)
             torch.cuda.synchronize()
             for x in (*ins_k, *outs_k, *chain):
                 check(bool(torch.isfinite(x).all()),
@@ -1645,7 +1762,7 @@ def main() -> int:
             ms_out = cuda_ms(lambda: acs.outside_scan(*oargs), 5)
             # the probability kernel on the kernel chain's planes, the
             # inputs the main path gives it, against scan_probabilities
-            pargs = (t, g, s, lens, d, n_max, band, dt, ins_k, chain)
+            pargs = (t, g_k, s, lens, d, n_max, band, dt, ins_k, chain)
             pw_k = ap.window_probs(*pargs)
             pw_p, plain_prob = timed_once(
                 lambda: batched.scan_probabilities(*pargs))
@@ -1676,7 +1793,7 @@ def main() -> int:
             stream = torch.cuda.current_stream().cuda_stream
 
             def window(staged):
-                return lambda: ap._prob_call(ap._fn(dt), g, s, lens, d,
+                return lambda: ap._prob_call(ap._fn(dt), g_k, s, lens, d,
                                              n_max, band, dt, ins_k, chain,
                                              stream, staged=staged)
 
@@ -1716,6 +1833,24 @@ def main() -> int:
         recs["access_prob"] = dict(ms=ms_prob, plain_ms=plain_prob,
                                    bound_ms=bound, bound_by=bound_by,
                                    err=de_prob)
+        for name, ms, plain, err, inside in (
+                ("access_grids_inside", ms_gi, plain_gi, err_gi, True),
+                ("access_grids_outside", ms_go, plain_go, err_go, False)):
+            bound, bound_by = grids_bound_ms(B, n1, band, s.shape[1], 4,
+                                             inside)
+            launch = dev_g.get("inside_kernel" if inside
+                               else "outside_kernel")
+            print(f"[kernel] {name} {label} float32 B={B} columns={n1}: "
+                  f"{ms:.4f} ms (the launch alone "
+                  + (f"{launch:.4f} ms by torch.profiler" if launch
+                     else "not measured") +
+                  f"), plain {plain:.2f} ms, bound {bound:.6f} ms "
+                  f"({bound_by}), {ms / bound:.1f}x bound, every plane bit "
+                  f"for bit" + ("" if inside else
+                                f" but the seed, {seed_ulps} ulps at most")
+                  + f", max |diff| {err:.3g} {tag}", flush=True)
+            recs[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                              bound_by=bound_by, err=err)
         for name, ms, plain, rel, de, inside in (
                 ("access_inside", ms_in, plain_in, rel_in, de_all, True),
                 ("access_outside", ms_out, plain_out, rel_out, de_out,
@@ -1753,15 +1888,21 @@ def main() -> int:
         "bound_ms": urec["bound_ms"], "bound_by": urec["bound_by"],
         "library_ms": None,
     }]
-    for name, replaces in (
-            ("access_inside", "priblast_tpu/accessibility/batched.py:588,1067"),
-            ("access_outside", "priblast_tpu/accessibility/batched.py:926"),
-            ("access_prob",
+    for name, source, replaces in (
+            ("access_grids_inside", "access_grids",
+             "priblast_tpu/accessibility/batched.py:372"),
+            ("access_grids_outside", "access_grids",
+             "priblast_tpu/accessibility/batched.py:741"),
+            ("access_inside", "access_inside",
+             "priblast_tpu/accessibility/batched.py:588,1067"),
+            ("access_outside", "access_outside",
+             "priblast_tpu/accessibility/batched.py:926"),
+            ("access_prob", "access_prob",
              "priblast_tpu/accessibility/batched.py:1111,1175")):
         rec = db_rec[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"priblast_tpu_torch/csrc/{name}.cu",
+            "source": f"priblast_tpu_torch/csrc/{source}.cu",
             "replaces": replaces, "launches": alaunches[name],
             "max_abs_err": max(rec["err"], ris_rec[name]["err"]),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

@@ -10,7 +10,9 @@ Layout: every per-column weight grid and every stacked state is
 
 - ``make_grids`` / ``make_outside_grids`` / ``make_prob_grids``: all
   sequence- and pair-type-dependent weights, as direct table gathers
-  ``tab[index(chars around i, chars around j)]`` over the whole grid;
+  ``tab[index(chars around i, chars around j)]`` over the whole grid. On
+  ``cuda`` the first two run as a hand-written kernel, a thread per cell
+  (ops/access_grids.py); the functions here are its plain versions;
 - ``inside_pass`` / ``outside_pass`` / ``b_outer_scan``: the column scans.
   On ``cuda`` they run as two hand-written kernels (ops/access_scan.py:
   the inside pass with both exterior scans, and the outside pass; one CTA
@@ -922,11 +924,16 @@ def probability_pass(t: Tables, g: Grids, pg: ProbGrids, ins, outs,
 def outside_inputs(t: Tables, s_padded, lengths, n_max: int, band: int,
                    dtype, g: Grids, ins):
     """The outside scan's grids and multi1 from the inside scan's eight
-    outputs `ins` (six planes, A_full, B_full); lengths int64."""
+    outputs `ins` (six planes, A_full, B_full); lengths int64. The grids
+    come from ops/access_grids.py: its kernel on cuda, make_outside_grids
+    on the CPU."""
+    # imported here: ops/access_grids.py imports this module
+    from priblast_tpu_torch.ops import access_grids
+
     A_full, B_full = ins[6], ins[7]
     logZ = A_full.gather(0, lengths[None, :])[0]
-    og = make_outside_grids(t, s_padded, lengths, n_max, band, dtype, g,
-                            ins[5], A_full, B_full, logZ)
+    og = access_grids.outside_grids(t, s_padded, lengths, n_max, band, dtype,
+                                    g, ins[5], A_full, B_full, logZ)
     return og, ins[4]
 
 
@@ -949,13 +956,13 @@ def window_probabilities(w_span: int, min_acc_len: int, n_max: int, dtype,
                          t: Tables | None = None):
     """Unpaired probabilities of every window of size w and w + 1, in
     `dtype`: (p_w, p_w1), each [N+2, B] indexed by 1-based window start.
-    The column scans run through ops/access_scan.py and the probability
-    pass through ops/access_prob.py: the three kernels on cuda, their
-    plain versions on the CPU. `t`: make_tables(w_span, dtype)
-    on the batch's device, built here where not given."""
-    # imported here: ops/access_scan.py and ops/access_prob.py import
-    # this module
-    from priblast_tpu_torch.ops import access_prob, access_scan
+    The weight grids run through ops/access_grids.py, the column scans
+    through ops/access_scan.py and the probability pass through
+    ops/access_prob.py: the kernels on cuda, their plain versions on the
+    CPU. `t`: make_tables(w_span, dtype) on the batch's device, built here
+    where not given."""
+    # imported here: the ops modules import this module
+    from priblast_tpu_torch.ops import access_grids, access_prob, access_scan
 
     if s_padded.shape[0] == 1:
         # a one-row batch runs as two copies of its row: the plain
@@ -971,7 +978,7 @@ def window_probabilities(w_span: int, min_acc_len: int, n_max: int, dtype,
     lengths = lengths.to(torch.int64)
     if t is None:
         t = make_tables(w_span, dtype=dtype, device=s_padded.device)
-    g = make_grids(t, s_padded, lengths, n_max, band, dtype)
+    g = access_grids.inside_grids(t, s_padded, lengths, n_max, band, dtype)
     ins = access_scan.inside_scan(t, g, lengths, n_max, band, dtype)
     og, multi1 = outside_inputs(t, s_padded, lengths, n_max, band, dtype, g,
                                 ins)

@@ -18,6 +18,7 @@ import ungapped_cases as uc
 from priblast_tpu_torch import cli
 from priblast_tpu_torch.accessibility import batched as ab
 from priblast_tpu_torch.models import db as tdb
+from priblast_tpu_torch.ops import access_grids as ag
 from priblast_tpu_torch.ops import access_prob as ap
 from priblast_tpu_torch.ops import access_scan as acs
 from priblast_tpu_torch.ops import gapped_sweep as sweep_op
@@ -555,3 +556,89 @@ def test_probability_wrapper_rejects_bad_inputs(bad):
     with pytest.raises(ValueError):
         ap.window_probs(t, g, s, lens, w, n_max, 72, torch.float32, ins,
                         outs)
+
+
+def _grid_ulps(a, b):
+    """Largest distance in ulps of two tensors of nonnegative floats."""
+    it = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return int((a.view(it).long() - b.view(it).long()).abs().max())
+
+
+def _grids_inputs(dev, dtype):
+    """_access_batch's ragged batch on `dev` with its plain inside grids and
+    the inputs of the outside grids (multi2, A, B, logZ) from its scan."""
+    t, g, s, lens, n_max = _access_batch(dev, dtype=dtype)
+    ins = acs.inside_scan(t, g, lens, n_max, 72, dtype)
+    logZ = ins[6].gather(0, lens[None, :])[0]
+    return t, g, s, lens, n_max, (ins[5], ins[6], ins[7], logZ)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_grids_kernels_match_plain_versions_on_the_card(dtype):
+    """Both grid launches against make_grids and make_outside_grids on the
+    card, on a ragged batch with two all-padding rows: every plane bit for
+    bit, the seed within 2 ulps (expf / exp may round otherwise than
+    PyTorch's exp); one launch each per call."""
+    dev = _card()
+    dt = ab._DTYPES[dtype]
+    t, g, s, lens, n_max, args = _grids_inputs(dev, dt)
+    before = ag.inside_grids_launches, ag.outside_grids_launches
+    got = ag.inside_grids(t, s, lens, n_max, 72, dt)
+    og = ab.make_outside_grids(t, s, lens, n_max, 72, dt, g, *args)
+    got_o = ag.outside_grids(t, s, lens, n_max, 72, dt, g, *args)
+    torch.cuda.synchronize()
+    assert (ag.inside_grids_launches, ag.outside_grids_launches) == (
+        before[0] + 1, before[1] + 1)
+    for ref, out in ((g, got), (og, got_o)):
+        for name, a, b in zip(ref._fields, out, ref):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            if name == "seed":
+                assert _grid_ulps(a, b) <= 2, name
+            else:
+                assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("side,bad", [
+    ("inside", "dtype"), ("inside", "shape"), ("inside", "contiguous"),
+    ("inside", "device"), ("inside", "lengths"), ("outside", "dtype"),
+    ("outside", "shape"), ("outside", "contiguous"), ("outside", "device"),
+    ("outside", "lengths")])
+def test_access_grids_wrapper_rejects_bad_inputs(side, bad):
+    """inside_grids and outside_grids raise ValueError on a tensor of the
+    wrong dtype, shape or device, a non-contiguous one, or lengths past
+    n_max; on good CPU inputs they return the plain versions' planes."""
+    dt = torch.float32
+    t, g, s, lens, n_max, args = _grids_inputs("cpu", dt)
+    m2, A, Bo, logZ = args
+    if side == "inside":
+        got = ag.inside_grids(t, s, lens, n_max, 72, dt)
+        assert all(torch.equal(a, b) for a, b in zip(got, g))
+    else:
+        got = ag.outside_grids(t, s, lens, n_max, 72, dt, g, *args)
+        ref = ab.make_outside_grids(t, s, lens, n_max, 72, dt, g, *args)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    if bad == "dtype":
+        s, A = (s.int(), A) if side == "inside" else (s, A.double())
+    elif bad == "shape":
+        if side == "inside":
+            lens = lens[:-1]
+        else:
+            Bo = Bo[:-1]
+    elif bad == "contiguous":
+        if side == "inside":
+            s = s.t().contiguous().t()
+        else:
+            m2 = m2.transpose(0, 1).contiguous().transpose(0, 1)
+    elif bad == "device":
+        if side == "inside":
+            lens = lens.to("meta")
+        else:
+            logZ = logZ.to("meta")
+    else:
+        lens = lens + n_max                     # past the padded length
+    with pytest.raises(ValueError):
+        if side == "inside":
+            ag.inside_grids(t, s, lens, n_max, 72, dt)
+        else:
+            ag.outside_grids(t, s, lens, n_max, 72, dt, g, m2, A, Bo, logZ)
