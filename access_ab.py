@@ -4,7 +4,7 @@ against its parent version and variants, on one GPU, on the main path's
 first db batch and first ris batch; then the three kernels as committed on
 all four of the main path's batches.
 
-    python3 access_ab.py [--kernel outside|inside|prob] [--parent FILE]
+    python3 access_ab.py [--kernel outside|inside|prob|grids] [--parent FILE]
                          [--parent-threads 256] [--reps 5]
                          [--threads 768,512] [--tile N]
                          [NAME=SRC[@THREADS] ...]
@@ -45,6 +45,19 @@ SM cycles and in us per column step (cycle shares of the measured step);
 path's four batches (db 16 x 6,145 and 8 x 5,121; ris 64 x 1,281 and 64 x
 1,025) and their sums, launches x (time - bound); and one JSON object
 last.
+
+--kernel grids (csrc/access_grids.cu, the weight grids' two launches):
+each build at each of its (threads, tile) runs, the parent at
+--parent-threads with a thread per cell; the committed build at every
+--threads with every --tile (columns per CTA of the outside launch; the
+inside launch runs a thread per cell). Every build must give the planes
+of make_grids and make_outside_grids bit for bit (the seed within 2
+ulps) on the first db and ris batches. Prints `[ab]` lines (ms in turns
+through `_grids_call`, the launch alone by torch.profiler, x its byte
+bound), `[split]` lines (the wrapper's host microseconds per call by
+part, `chip_smoke.grids_wrapper_split`), `[batches]` lines (both wrappers
+as the main path calls them on all four batches, and launches x (time -
+bound)), then JSON.
 """
 
 from __future__ import annotations
@@ -63,11 +76,260 @@ SRC_REL = "priblast_tpu_torch/csrc/access_{}.cu"
 PLANE_RTOL, ENERGY_TOL = 1e-4, 2e-3
 
 
+def main_path_batches(seed: int):
+    """The accessibility batches of the main path on chip_smoke.py's
+    workload from `seed`: (db batches, ris batches), each a list of
+    (codes [B, n_max] uint8, lengths [B] int64)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from priblast_tpu_torch.models import db_gpu
+    from priblast_tpu_torch.ops import native
+    from priblast_tpu_torch.utils import alphabet
+
+    rng = np.random.default_rng(seed)
+    db_lens = cs.DB_LEN + rng.integers(-cs.DB_LEN // 25, cs.DB_LEN // 25 + 1,
+                                       cs.N_DB)
+    q_lens = cs.Q_LEN + rng.integers(-cs.Q_LEN // 25, cs.Q_LEN // 25 + 1,
+                                     cs.N_Q)
+    db_seqs = cs.markov_batch(rng, db_lens)
+    q_seqs = cs.markov_batch(rng, q_lens)
+    wave = [int(i) for i in native.argsort_desc(q_lens)]
+
+    def plan(seqs, idxs):
+        out = []
+        for group, bsz, padded in db_gpu.plan_batches(
+                [len(seqs[i]) for i in idxs]):
+            codes = np.zeros((bsz, padded), np.uint8)
+            lens = np.zeros(bsz, np.int64)
+            for bi, g in enumerate(group):
+                codes[bi, : len(seqs[idxs[g]])] = alphabet.access_codes(
+                    seqs[idxs[g]])
+                lens[bi] = len(seqs[idxs[g]])
+            out.append((codes, lens))
+        return out
+
+    return plan(db_seqs, list(range(len(db_seqs)))), plan(q_seqs, wave)
+
+
+def grids_ab(args, card: str, out_dir: Path) -> int:
+    """--kernel grids: the grid kernel's two launches (inside_kernel,
+    outside_kernel of csrc/access_grids.cu) in the parent's, the committed
+    and each variant's build, held bit for bit to make_grids and
+    make_outside_grids (the seed within chip_smoke.SEED_ULPS ulps) on the
+    first db and ris batches, timed in turns through `_grids_call` (the
+    wrapper less its checks) and alone (torch.profiler); the wrapper's
+    host time by part (`chip_smoke.grids_wrapper_split`); then both
+    wrappers, as the main path calls them, on all four batches."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from priblast_tpu_torch.accessibility import batched
+    from priblast_tpu_torch.ops import access_grids as ag
+    from priblast_tpu_torch.ops import access_scan as acs
+    from priblast_tpu_torch.ops import nvcc
+
+    threads = [int(x) for x in (args.threads or str(ag.THREADS)).split(",")]
+    tiles = [int(x) for x in (args.tile or str(ag.TILE)).split(",")]
+    parent = Path(args.parent) if args.parent else out_dir / "parent_grids.cu"
+    if not args.parent:
+        parent.write_text(subprocess.run(
+            ["git", "show", f"HEAD:{SRC_REL.format('grids')}"], cwd=HERE,
+            check=True, capture_output=True, text=True).stdout)
+    specs = {"parent": parent, "committed": ag.SRC}
+    # (threads, tile) of each run; the parent's tile 0 is its own default
+    runs = [("parent", args.parent_threads, 0)]
+    runs += [("committed", nt, q) for nt in threads for q in tiles]
+    for v in args.variants:
+        name, _, spec = v.partition("=")
+        src, _, nt = spec.partition("@")
+        specs[name] = Path(src)
+        runs.append((name, int(nt) if nt else threads[0], tiles[0]))
+
+    regs = {}
+
+    def build(name, src):
+        flags = acs.NVCC_FLAGS
+        try:
+            lib = ctypes.CDLL(str(nvcc.build(src, flags)))
+        except RuntimeError as e:
+            print(f"access_ab: {name} does not build: {e}", file=sys.stderr)
+            return name, None
+        r = subprocess.run(
+            [nvcc.shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc", *flags,
+             "-Xptxas", "-v", "-o", str(out_dir / f"grids_{name}.so"),
+             str(src)], capture_output=True, text=True)
+        for part in r.stderr.split("Compiling entry function")[1:]:
+            head = part.split("\n")[0]
+            for kname in ("inside_kernel", "outside_kernel"):
+                for dt in ("IfE", "IdE"):
+                    if kname + dt in head:
+                        regs[f"{name} {kname} {dt[1]}"] = " ".join(
+                            ln.split(":", 1)[-1].strip()
+                            for ln in part.splitlines()
+                            if "registers" in ln or "spill" in ln)
+        for side in ("inside", "outside"):
+            for dt in ("f32", "f64"):
+                fn = getattr(lib, f"access_grids_{side}_{dt}")
+                fn.restype = ctypes.c_int
+                fn.argtypes = [ctypes.c_void_p] * 4
+        return name, lib
+
+    with cf.ThreadPoolExecutor(len(specs) + 1) as ex:
+        futs = [ex.submit(build, n, s) for n, s in specs.items()]
+        wrap = ex.submit(ag._lib)
+        scan = ex.submit(acs._lib, "inside")
+        wrap.result()
+        scan.result()
+        libs = dict(f.result() for f in futs)
+    bad = {n for n, lib in libs.items() if lib is None}
+    print(f"[build] {', '.join(n for n in libs if n not in bad)} ({card})",
+          flush=True)
+    for key, r in regs.items():
+        print(f"[build] {key}: {r}", flush=True)
+
+    db_batches, ris_batches = main_path_batches(args.seed)
+    dev, dt, w = torch.device("cuda"), torch.float32, 70
+    band = w + 2
+    stream = torch.cuda.current_stream().cuda_stream
+    report = {"card": card, "kernel": "grids", "registers": regs,
+              "batches": {}}
+
+    def inputs(codes, lengths):
+        """gargs = (t, s, lens, n_max, band, dtype) of one batch on the
+        card, and oin = (g, multi2, A, B, logZ): the plain inside grids and
+        the inside scan's outputs."""
+        B, n_max = codes.shape
+        s_np = np.zeros((B, n_max + batched.ML + 4), np.int64)
+        s_np[:, 1: n_max + 1] = codes
+        s = torch.as_tensor(s_np, device=dev)
+        lens = torch.as_tensor(lengths, device=dev)
+        t = batched.make_tables(w, dt, dev)
+        gargs = (t, s, lens, n_max, band, dt)
+        g = batched.make_grids(*gargs)
+        ins = acs.inside_scan(t, g, lens, n_max, band, dt)
+        return gargs, (g, ins[5], ins[6], ins[7],
+                       ins[6].gather(0, lens[None, :])[0])
+
+    for bname, (codes, lengths) in (("db", db_batches[0]),
+                                    ("ris", ris_batches[0])):
+        B, n_max = codes.shape
+        n1 = n_max + 1
+        with torch.no_grad():
+            gargs, oin = inputs(codes, lengths)
+            t, s, lens = gargs[:3]
+            g = oin[0]
+            og = batched.make_outside_grids(*gargs, *oin)
+            outside = (g, oin[2], oin[3], oin[4], oin[1])
+            rec = report["batches"][bname] = {"B": B, "columns": n1}
+            for side, ref in (("inside", g), ("outside", og)):
+                def call(name, nt, q, side=side):
+                    return ag._grids_call(
+                        getattr(libs[name], f"access_grids_{side}_f32"), s,
+                        lens, n_max, band, dt, stream,
+                        None if side == "inside" else outside, threads=nt,
+                        tile=q)
+
+                good = []
+                # the inside launch has no tile: a thread per cell
+                side_runs = list(dict.fromkeys(
+                    (name, nt, q if side == "outside" else 0)
+                    for name, nt, q in runs))
+                for name, nt, q in side_runs:
+                    if name in bad:
+                        continue
+                    try:
+                        out = call(name, nt, q)
+                        torch.cuda.synchronize()
+                    except RuntimeError as e:
+                        print(f"[check] {bname} {side} {name} threads={nt} "
+                              f"tile={q}: {e}", flush=True)
+                        continue
+                    differ, ulps, _ = cs.grids_diff(out, ref)
+                    print(f"[check] {bname} {side} {name} threads={nt} "
+                          f"tile={q}: planes that differ {differ}, seed "
+                          f"{ulps} ulps", flush=True)
+                    if differ or ulps > cs.SEED_ULPS:
+                        print(f"access_ab: {name} differs from the plain "
+                              f"version on the {bname} batch",
+                              file=sys.stderr)
+                        bad.add(name)
+                    else:
+                        good.append((name, nt, q))
+                bound, bound_by = cs.grids_bound_ms(B, n1, band, s.shape[1],
+                                                    4, side == "inside")
+                times, alone = {}, {}
+                for turn in (good, good[::-1]):
+                    for name, nt, q in turn:
+                        key = f"{name}@{nt}x{q}"
+                        ms = cs.cuda_ms(lambda: call(name, nt, q), args.reps)
+                        times.setdefault(key, []).append(ms)
+                for name, nt, q in good:
+                    key = f"{name}@{nt}x{q}"
+                    by = cs.device_ms_by_kernel(lambda: call(name, nt, q),
+                                                (f"{side}_kernel",))
+                    alone[key] = by.get(f"{side}_kernel")
+                    a = alone[key]
+                    print(f"[ab] {bname} B={B} columns={n1} {side} {key}: "
+                          + " / ".join(f"{x:.4f}" for x in times[key])
+                          + " ms in turns, the launch alone "
+                          + (f"{a:.4f} ms ({a / bound:.2f}x bound)" if a
+                             else "not measured")
+                          + f"; bound {bound:.6f} ms ({bound_by}) ({card})",
+                          flush=True)
+                split = cs.grids_wrapper_split(
+                    ag, side, gargs, None if side == "inside" else oin)
+                print(f"[split] {bname} {side} wrapper, host us per call: "
+                      + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+                      + f" ({card})", flush=True)
+                rec[side] = dict(bound_ms=bound, bound_by=bound_by,
+                                 times_ms=times, alone_ms=alone,
+                                 wrapper_us=split)
+
+    # both wrappers, as the main path calls them, on all four batches
+    sums = {k: dict(ms=0.0, bound_ms=0.0, launches=0)
+            for k in ("inside", "outside")}
+    report["main_path"] = []
+    for bname, blist in (("db", db_batches), ("ris", ris_batches)):
+        for k, (codes, lengths) in enumerate(blist):
+            B, n_max = codes.shape
+            n1 = n_max + 1
+            with torch.no_grad():
+                gargs, oin = inputs(codes, lengths)
+                for side, fn, a in (("inside", ag.inside_grids, gargs),
+                                    ("outside", ag.outside_grids,
+                                     (*gargs, *oin))):
+                    ms = cs.cuda_ms(lambda: fn(*a, checked=True), args.reps)
+                    bound, bound_by = cs.grids_bound_ms(
+                        B, n1, band, gargs[1].shape[1], 4, side == "inside")
+                    sums[side]["ms"] += ms
+                    sums[side]["bound_ms"] += bound
+                    sums[side]["launches"] += 1
+                    report["main_path"].append(dict(
+                        kernel=side, batch=f"{bname}{k + 1}", B=B,
+                        columns=n1, ms=ms, bound_ms=bound))
+                    print(f"[batches] {side}_grids {bname} batch {k + 1} "
+                          f"B={B} columns={n1}: {ms:.4f} ms through the "
+                          f"wrapper, bound {bound:.6f} ms ({bound_by}), "
+                          f"{ms / bound:.2f}x ({card})", flush=True)
+    for side, v in sums.items():
+        v["loss_ms"] = v["ms"] - v["bound_ms"]
+        print(f"[batches] {side}_grids over {v['launches']} launches: "
+              f"{v['ms']:.4f} ms, bound {v['bound_ms']:.6f} ms, launches x "
+              f"(time - bound) {v['loss_ms']:.4f} ms ({card})", flush=True)
+    report["main_path_sums"] = sums
+    report["at"] = time.strftime("%Y-%m-%dT%H:%M:%S")
+    report["differ"] = sorted(bad)
+    print(json.dumps(report))
+    return 1 if bad else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", nargs="*", metavar="NAME=SRC[@THREADS]")
-    ap.add_argument("--kernel", choices=("outside", "inside", "prob"),
-                    default="outside")
+    ap.add_argument("--kernel", choices=("outside", "inside", "prob",
+                                          "grids"), default="outside")
     ap.add_argument("--parent", help="the parent's access_<kernel>.cu")
     ap.add_argument("--parent-threads", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
@@ -76,9 +338,10 @@ def main() -> int:
                     help="threads per CTA of the committed build, "
                          "comma-separated (default: the wrapper's); the "
                          "first is every variant's default")
-    ap.add_argument("--tile", type=int,
-                    help="prob: columns per CTA of every build but the "
-                         "parent's (default: the wrapper's)")
+    ap.add_argument("--tile",
+                    help="columns per CTA of every build but the parent's "
+                         "(default: the wrapper's); grids: comma-separated, "
+                         "the committed build at each, with each --threads")
     args = ap.parse_args()
 
     import numpy as np
@@ -90,11 +353,9 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
     import chip_smoke as cs
     from priblast_tpu_torch.accessibility import batched
-    from priblast_tpu_torch.models import db_gpu
     from priblast_tpu_torch.ops import access_prob as aprob
     from priblast_tpu_torch.ops import access_scan as acs
     from priblast_tpu_torch.ops import native, nvcc
-    from priblast_tpu_torch.utils import alphabet
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -103,6 +364,9 @@ def main() -> int:
     out_dir = HERE / "build" / "access_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     kern = args.kernel
+    if kern == "grids":
+        return grids_ab(args, card, out_dir)
+    prob_tile = int(args.tile) if args.tile else None
     inside, prob = kern == "inside", kern == "prob"
     threads = [int(x) for x in (args.threads or str(
         aprob.THREADS if prob else acs.THREADS if inside
@@ -173,32 +437,7 @@ def main() -> int:
     for name, r in regs.items():
         print(f"[build] {name} float: {r}", flush=True)
 
-    # the workload of chip_smoke.py, and its first db and ris batches
-    rng = np.random.default_rng(args.seed)
-    db_lens = cs.DB_LEN + rng.integers(-cs.DB_LEN // 25, cs.DB_LEN // 25 + 1,
-                                       cs.N_DB)
-    q_lens = cs.Q_LEN + rng.integers(-cs.Q_LEN // 25, cs.Q_LEN // 25 + 1,
-                                     cs.N_Q)
-    db_seqs = cs.markov_batch(rng, db_lens)
-    q_seqs = cs.markov_batch(rng, q_lens)
-    wave = [int(i) for i in native.argsort_desc(q_lens)]
-
-    def plan(seqs, idxs):
-        """The accessibility batches of the main path: (codes, lengths)."""
-        out = []
-        for group, bsz, padded in db_gpu.plan_batches(
-                [len(seqs[i]) for i in idxs]):
-            codes = np.zeros((bsz, padded), np.uint8)
-            lens = np.zeros(bsz, np.int64)
-            for bi, g in enumerate(group):
-                codes[bi, : len(seqs[idxs[g]])] = alphabet.access_codes(
-                    seqs[idxs[g]])
-                lens[bi] = len(seqs[idxs[g]])
-            out.append((codes, lens))
-        return out
-
-    db_batches = plan(db_seqs, list(range(len(db_seqs))))
-    ris_batches = plan(q_seqs, wave)
+    db_batches, ris_batches = main_path_batches(args.seed)
     batches = {"db": db_batches[0], "ris": ris_batches[0]}
     dev, dt, w, dmin = torch.device("cuda"), torch.float32, 70, 5
     band = w + 2
@@ -267,7 +506,7 @@ def main() -> int:
                     return aprob._prob_call(
                         libs[name].access_prob_f32, g, s, lens, dmin, n_max,
                         band, dt, ins, outs, stream, nt,
-                        None if name == "parent" else args.tile)
+                        None if name == "parent" else prob_tile)
             else:
                 ins = acs.inside_scan(t, g, lens, n_max, band, dt)
                 og, m1 = batched.outside_inputs(t, s, lens, n_max, band, dt,

@@ -94,18 +94,20 @@ def child(work: Path, fa: str) -> None:
                 part("load_grids", access_grids._lib)
                 t, g = part("grids", lambda: (
                     tb := ab.make_tables(w, dt, dev),
-                    access_grids.inside_grids(tb, s, lens, n_max, band, dt)))
+                    access_grids.inside_grids(tb, s, lens, n_max, band, dt,
+                                              checked=True)))
                 part("load_inside", lambda: acs._lib("inside"))
                 ins = part("inside", lambda: acs.inside_scan(
-                    t, g, lens, n_max, band, dt))
+                    t, g, lens, n_max, band, dt, checked=True))
                 og, m1 = part("outside_grids", lambda: ab.outside_inputs(
-                    t, s, lens, n_max, band, dt, g, ins))
+                    t, s, lens, n_max, band, dt, g, ins, checked=True))
                 part("load_outside", lambda: acs._lib("outside"))
                 outs = part("outside", lambda: acs.outside_scan(
                     t, og, m1, n_max, band, dt))
                 part("load_prob", access_prob._lib)
                 pw = part("probability_pass", lambda: access_prob.window_probs(
-                    t, g, s, lens, dmin, n_max, band, dt, ins, outs))
+                    t, g, s, lens, dmin, n_max, band, dt, ins, outs,
+                    checked=True))
 
                 def epilogue():
                     acc, cond = ab.accessibility_from_probabilities(

@@ -97,8 +97,11 @@ Phases (any failure ends the run with a non-zero exit code):
      probability pass) against their plain versions on the main path's
      first db batch and its first ris batch (their own shapes): the grid
      launches' planes bit for bit against make_grids and
-     make_outside_grids (the seed within 2 ulps); each scan kernel's
-     planes against its plain
+     make_outside_grids (the seed within 2 ulps), each launch's time
+     through its wrapper as the main path calls it (the lengths checked on
+     the host) and with the wrapper's own range check, alone (from
+     torch.profiler), and its wrapper's host time by part; each scan
+     kernel's planes against its plain
      version's on the same inputs, and the window energies of the kernel
      chain against the plain chain's (2e-3 kcal/mol); the probability
      kernel's p_w and p_w1 against scan_probabilities on the scan
@@ -108,7 +111,14 @@ Phases (any failure ends the run with a non-zero exit code):
      kernel's device time by launch (window and sum kernels, from
      torch.profiler) and its window kernel's two instantiations (stem rows
      staged in shared memory, or read from device memory) held bit for
-     bit and timed in turns.
+     bit and timed in turns;
+  7b. nosync: window_probabilities on the same db and ris batches, called
+     as BatchedRaccess calls it (the lengths' range checked on the host),
+     under torch.cuda.set_sync_debug_mode("error") from after the codes'
+     and lengths' H2D to before the results' D2H, so that any
+     synchronising call in the four accessibility wrappers fails the run;
+     each accessibility kernel launched once, and the bits of the call
+     that checks the lengths itself.
 The last lines are the kernels' JSON record, the card line from nvidia-smi
 and {"ok": true, "device": {...}}.
 """
@@ -764,6 +774,120 @@ def grids_bound_ms(B: int, n1: int, band: int, S: int, item: int,
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def grids_diff(got, ref):
+    """(the planes that differ but the seed, the seed's largest distance in
+    ulps, the largest |got - ref| over the float planes) of two grids
+    tuples."""
+    import torch
+
+    differ, ulps, err = [], 0, 0.0
+    for name, a, b in zip(ref._fields, got, ref):
+        if name == "seed":
+            it = torch.int32 if a.dtype == torch.float32 else torch.int64
+            ulps = int((a.view(it).long() - b.view(it).long()).abs().max())
+        elif not torch.equal(a, b):
+            differ.append(name)
+        if a.is_floating_point():
+            err = max(err, float((a.double() - b.double()).abs().max()))
+    return differ, ulps, err
+
+
+def grids_wrapper_split(ag, side: str, gargs, oin=None,
+                        reps: int = 200) -> dict:
+    """Host microseconds per call of each part of a grid wrapper
+    (ops/access_grids.py: inside_grids, or outside_grids with `oin` = (g,
+    multi2, A, B, logZ)) on the card, each part alone in a loop of `reps`
+    with the card idle before it: its tensor checks; the lengths' range
+    check that a call without `checked` makes (a read from the card); the
+    scalars (cached, and as computed before they were); the tables; the
+    stream; the two torch.empty; the ctypes arrays of its pointers; the C
+    call (the launch's enqueue); the output views; and the whole wrapper,
+    as the main path calls it (`checked`) and without `checked` (where
+    its read waits for the launches queued before it)."""
+    import ctypes
+    import math
+
+    import torch
+    from priblast_tpu_torch.ops import access_scan as acs
+    from priblast_tpu_torch.ops import nvcc
+
+    t, s, lens, n_max, band, dt = gargs
+    dev, B = s.device, s.shape[0]
+    n1 = n_max + 1
+    shape = (n1, B, band)
+    outside = None if oin is None else (oin[0], oin[2], oin[3], oin[4],
+                                        oin[1])
+    names = ag._INSIDE_F if oin is None else ag._OUTSIDE_F
+    fn = ag._fn(side, dt)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def checks():
+        nvcc.check_tensor(s, "s_padded", (B, s.shape[1]), torch.int64, dev)
+        nvcc.check_tensor(lens, "lengths", (B,), torch.int64, dev)
+        if oin is not None:
+            nvcc.check_tensor(oin[0].dangle_ij, "dangle_ij", shape, dt, dev)
+            nvcc.check_tensor(oin[1], "multi2", shape, dt, dev)
+            for name, x in (("A_full", oin[2]), ("B_full", oin[3])):
+                nvcc.check_tensor(x, name, (n1, B), dt, dev)
+            nvcc.check_tensor(oin[4], "logZ", (B,), dt, dev)
+
+    def empties():
+        return (torch.empty((len(names), *shape), dtype=dt, device=dev),
+                torch.empty((2, *shape), dtype=torch.bool, device=dev))
+
+    planes, flags = empties()
+    extra = () if outside is None else tuple(x.data_ptr()
+                                             for x in outside[1:])
+
+    def arrays():
+        cells = math.prod(shape)
+        p0, f0 = planes.data_ptr(), flags.data_ptr()
+        item = planes.element_size()
+        ptrs = (s.data_ptr(), lens.data_ptr(),
+                *(x.data_ptr() for x in ag._tables(band - 2, dev)), *extra,
+                *(p0 + k * cells * item for k in range(len(names))),
+                f0, f0 + cells)
+        sizes = (n1, B, band, s.shape[1], ag.THREADS, 0, ag.TILE)
+        sc = ag._scalars(band - 2, dt)
+        return ((ctypes.c_void_p * len(ptrs))(*ptrs),
+                (ctypes.c_longlong * len(sizes))(*sizes),
+                (ctypes.c_double * len(sc))(*sc))
+
+    args = arrays()
+
+    def outputs():
+        out = dict(zip(names, planes.unbind(0)))
+        m0, m1 = flags.unbind(0)
+        return out, m0, m1
+
+    def whole(**kw):
+        if oin is None:
+            return ag.inside_grids(*gargs, **kw)
+        return ag.outside_grids(*gargs, *oin, **kw)
+
+    parts = {"check_tensor": checks,
+             "lengths_range": lambda: acs._check_lengths(lens, n_max, B, dev),
+             "scalars": lambda: ag._scalars(band - 2, dt),
+             "scalars_uncached": lambda: ag._scalars.__wrapped__(band - 2,
+                                                                 dt),
+             "tables": lambda: ag._tables(band - 2, dev),
+             "stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+             "empty": empties, "ctypes_arrays": arrays,
+             "c_call": lambda: fn(*args, stream), "outputs": outputs,
+             "wrapper": lambda: whole(checked=True),
+             "wrapper_range_check": whole}
+    out = {}
+    for name, part in parts.items():
+        part()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            part()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    return out
 
 
 def main() -> int:
@@ -1654,22 +1778,6 @@ def main() -> int:
             *pw, lens, p.min_accessible_length, n_max,
             batched._linmodel(p.maximal_span).sp.kT)
 
-    def grids_diff(got, ref):
-        """(the planes that differ but the seed, the seed's largest
-        distance in ulps, the largest |got - ref| over the float planes)
-        of two grids tuples."""
-        differ, ulps, err = [], 0, 0.0
-        for name, a, b in zip(ref._fields, got, ref):
-            if name == "seed":
-                it = torch.int32 if a.dtype == torch.float32 else torch.int64
-                ulps = int((a.view(it).long() - b.view(it).long()).abs()
-                           .max())
-            elif not torch.equal(a, b):
-                differ.append(name)
-            if a.is_floating_point():
-                err = max(err, float((a.double() - b.double()).abs().max()))
-        return differ, ulps, err
-
     def energy_diff(a, b):
         return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
@@ -1720,14 +1828,23 @@ def main() -> int:
                   f"grid kernels differ from their plain versions: inside "
                   f"{diff_gi}, outside {diff_go}, seed {seed_ulps} ulps "
                   f"({label})")
-            ms_gi = cuda_ms(lambda: ag.inside_grids(*gargs), 20)
-            ms_go = cuda_ms(lambda: ag.outside_grids(*gargs, *oin), 20)
+            # through the wrappers as the main path calls them (the
+            # lengths checked on the host), and with their own range check
+            ms_gi = cuda_ms(lambda: ag.inside_grids(*gargs, checked=True), 20)
+            ms_go = cuda_ms(lambda: ag.outside_grids(*gargs, *oin,
+                                                     checked=True), 20)
+            ms_gi_rc = cuda_ms(lambda: ag.inside_grids(*gargs), 20)
+            ms_go_rc = cuda_ms(lambda: ag.outside_grids(*gargs, *oin), 20)
             # the launches alone, without the wrapper's checks
             dev_g = {**device_ms_by_kernel(lambda: ag.inside_grids(*gargs),
                                            ("inside_kernel",)),
                      **device_ms_by_kernel(
                          lambda: ag.outside_grids(*gargs, *oin),
                          ("outside_kernel",))}
+            # the wrappers' host time by part
+            split_g = {"inside": grids_wrapper_split(ag, "inside", gargs),
+                       "outside": grids_wrapper_split(ag, "outside", gargs,
+                                                      oin)}
             plain_gi = cuda_ms(lambda: batched.make_grids(*gargs), 1)
             plain_go = cuda_ms(
                 lambda: batched.make_outside_grids(*gargs, *oin), 1)
@@ -1833,22 +1950,31 @@ def main() -> int:
         recs["access_prob"] = dict(ms=ms_prob, plain_ms=plain_prob,
                                    bound_ms=bound, bound_by=bound_by,
                                    err=de_prob)
-        for name, ms, plain, err, inside in (
-                ("access_grids_inside", ms_gi, plain_gi, err_gi, True),
-                ("access_grids_outside", ms_go, plain_go, err_go, False)):
+        for name, ms, ms_rc, plain, err, inside in (
+                ("access_grids_inside", ms_gi, ms_gi_rc, plain_gi, err_gi,
+                 True),
+                ("access_grids_outside", ms_go, ms_go_rc, plain_go, err_go,
+                 False)):
             bound, bound_by = grids_bound_ms(B, n1, band, s.shape[1], 4,
                                              inside)
-            launch = dev_g.get("inside_kernel" if inside
-                               else "outside_kernel")
+            side = "inside" if inside else "outside"
+            launch = dev_g.get(f"{side}_kernel")
             print(f"[kernel] {name} {label} float32 B={B} columns={n1}: "
-                  f"{ms:.4f} ms (the launch alone "
-                  + (f"{launch:.4f} ms by torch.profiler" if launch
+                  f"{ms:.4f} ms through the wrapper as the main path calls "
+                  f"it, {ms / bound:.2f}x bound ({ms_rc:.4f} ms with the "
+                  f"wrapper's own range check); the launch alone "
+                  + (f"{launch:.4f} ms by torch.profiler, "
+                     f"{launch / bound:.2f}x bound" if launch
                      else "not measured") +
-                  f"), plain {plain:.2f} ms, bound {bound:.6f} ms "
-                  f"({bound_by}), {ms / bound:.1f}x bound, every plane bit "
-                  f"for bit" + ("" if inside else
-                                f" but the seed, {seed_ulps} ulps at most")
+                  f"; plain {plain:.2f} ms, bound {bound:.6f} ms "
+                  f"({bound_by}); every plane bit for bit"
+                  + ("" if inside else
+                     f" but the seed, {seed_ulps} ulps at most")
                   + f", max |diff| {err:.3g} {tag}", flush=True)
+            print(f"[kernel] {name} {label}: the wrapper's host us per call "
+                  "by part: " + ", ".join(
+                      f"{k} {v:.1f}" for k, v in split_g[side].items())
+                  + f" {tag}", flush=True)
             recs[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                               bound_by=bound_by, err=err)
         for name, ms, plain, rel, de, inside in (
@@ -1868,6 +1994,49 @@ def main() -> int:
     db_rec = hold_access("main-path db batch", *access_batches[0])
     ris_rec = hold_access("main-path ris batch",
                           *access_batches[n_db_batches])
+
+    # ---- 7b. no host sync in the accessibility wrappers ------------------
+    def nosync(label, codes, lengths):
+        """window_probabilities on one batch of the main path, called as
+        BatchedRaccess calls it (the lengths checked on the host), with
+        every synchronising call of PyTorch an error from after the codes'
+        and lengths' H2D to before the D2H of the results: the four
+        wrappers read nothing back from the card. Its bits against the
+        call that checks the lengths itself; each accessibility kernel
+        launched once. A failure here is never caught."""
+        dt, w, d = torch.float32, p.maximal_span, p.min_accessible_length
+        B, n_max = codes.shape
+        s_np = np.zeros((B, n_max + batched.ML + 4), np.int64)
+        s_np[:, 1: n_max + 1] = codes
+        s = torch.as_tensor(s_np, device=dev)
+        lens = torch.as_tensor(lengths.astype(np.int64), device=dev)
+        t = batched.make_tables(w, dt, dev)
+        before = access_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                got = batched.window_probabilities(w, d, n_max, dt, s, lens,
+                                                   t, checked=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ran = {k: n - before[k] for k, n in access_counts().items()}
+        with torch.no_grad():
+            ref = batched.window_probabilities(w, d, n_max, dt, s, lens, t)
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        check(all(n == 1 for n in ran.values()),
+              f"[nosync] {label}: accessibility launches {ran}, not one each")
+        check(same, f"[nosync] {label}: p_w, p_w1 differ from the call that "
+              "checks the lengths itself")
+        print(f"[nosync] {label} B={B} columns={n_max + 1}: "
+              "window_probabilities (checked lengths) under "
+              "torch.cuda.set_sync_debug_mode('error'), no synchronising "
+              f"call; launches {json.dumps(ran)}; p_w, p_w1 bit for bit "
+              f"with the call that checks the lengths itself {tag}",
+              flush=True)
+
+    nosync("main-path db batch", *access_batches[0])
+    nosync("main-path ris batch", *access_batches[n_db_batches])
     access_batches.clear()
 
     kernels = [{

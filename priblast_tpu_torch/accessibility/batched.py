@@ -922,18 +922,20 @@ def probability_pass(t: Tables, g: Grids, pg: ProbGrids, ins, outs,
 
 
 def outside_inputs(t: Tables, s_padded, lengths, n_max: int, band: int,
-                   dtype, g: Grids, ins):
+                   dtype, g: Grids, ins, checked: bool = False):
     """The outside scan's grids and multi1 from the inside scan's eight
-    outputs `ins` (six planes, A_full, B_full); lengths int64. The grids
-    come from ops/access_grids.py: its kernel on cuda, make_outside_grids
-    on the CPU."""
+    outputs `ins` (six planes, A_full, B_full); lengths int64 (`checked`:
+    their range checked on the host). The grids come from
+    ops/access_grids.py: its kernel on cuda, make_outside_grids on the
+    CPU."""
     # imported here: ops/access_grids.py imports this module
     from priblast_tpu_torch.ops import access_grids
 
     A_full, B_full = ins[6], ins[7]
     logZ = A_full.gather(0, lengths[None, :])[0]
     og = access_grids.outside_grids(t, s_padded, lengths, n_max, band, dtype,
-                                    g, ins[5], A_full, B_full, logZ)
+                                    g, ins[5], A_full, B_full, logZ,
+                                    checked=checked)
     return og, ins[4]
 
 
@@ -953,17 +955,24 @@ def scan_probabilities(t: Tables, g: Grids, s_padded, lengths,
 
 def window_probabilities(w_span: int, min_acc_len: int, n_max: int, dtype,
                          s_padded: torch.Tensor, lengths: torch.Tensor,
-                         t: Tables | None = None):
+                         t: Tables | None = None, *, checked: bool = False):
     """Unpaired probabilities of every window of size w and w + 1, in
     `dtype`: (p_w, p_w1), each [N+2, B] indexed by 1-based window start.
     The weight grids run through ops/access_grids.py, the column scans
     through ops/access_scan.py and the probability pass through
     ops/access_prob.py: the kernels on cuda, their plain versions on the
     CPU. `t`: make_tables(w_span, dtype) on the batch's device, built here
-    where not given."""
+    where not given. The lengths must lie in [0, n_max]: unless the caller
+    has `checked` that on the host, it is checked here, once, before any
+    grid is built (a read from the device); the wrappers then read
+    none."""
     # imported here: the ops modules import this module
     from priblast_tpu_torch.ops import access_grids, access_prob, access_scan
 
+    lengths = lengths.to(torch.int64)
+    if not checked:
+        access_scan._check_lengths(lengths, n_max, s_padded.shape[0],
+                                   s_padded.device)
     if s_padded.shape[0] == 1:
         # a one-row batch runs as two copies of its row: the plain
         # versions' matmuls and einsums sum in another order for a single
@@ -972,19 +981,21 @@ def window_probabilities(w_span: int, min_acc_len: int, n_max: int, dtype,
         p_w, p_w1 = window_probabilities(
             w_span, min_acc_len, n_max, dtype,
             s_padded.expand(2, -1).contiguous(),
-            lengths.expand(2).contiguous(), t)
+            lengths.expand(2).contiguous(), t, checked=True)
         return p_w[:, :1].contiguous(), p_w1[:, :1].contiguous()
     band = w_span + 2
-    lengths = lengths.to(torch.int64)
     if t is None:
         t = make_tables(w_span, dtype=dtype, device=s_padded.device)
-    g = access_grids.inside_grids(t, s_padded, lengths, n_max, band, dtype)
-    ins = access_scan.inside_scan(t, g, lengths, n_max, band, dtype)
+    g = access_grids.inside_grids(t, s_padded, lengths, n_max, band, dtype,
+                                  checked=True)
+    ins = access_scan.inside_scan(t, g, lengths, n_max, band, dtype,
+                                  checked=True)
     og, multi1 = outside_inputs(t, s_padded, lengths, n_max, band, dtype, g,
-                                ins)
+                                ins, checked=True)
     outs = access_scan.outside_scan(t, og, multi1, n_max, band, dtype)
     return access_prob.window_probs(t, g, s_padded, lengths, min_acc_len,
-                                    n_max, band, dtype, ins, outs)
+                                    n_max, band, dtype, ins, outs,
+                                    checked=True)
 
 
 def accessibility_from_probabilities(p_w, p_w1, lengths, w: int,
@@ -1035,9 +1046,14 @@ class BatchedRaccess:
         an empty shard runs nothing), each shard at the batch's n_max on a
         host thread of its own, and joined in order."""
         B, n_max = codes_batch.shape
+        lens = np.asarray(lengths, np.int64)
+        # the lengths' range, checked here on the host, once per batch: the
+        # device wrappers then read none back (ops/access_scan.py)
+        if lens.shape != (B,) or (B and (lens.min() < 0
+                                         or lens.max() > n_max)):
+            raise ValueError(f"lengths must be {B} values in [0, {n_max}]")
         s = np.zeros((B, n_max + ML + 4), dtype=np.int64)
         s[:, 1: n_max + 1] = codes_batch
-        lens = np.asarray(lengths, np.int64)
         shards = [(dev, lo, hi) for dev, (lo, hi) in zip(
             self.devices, dist.split_rows(B, len(self.devices))) if hi > lo]
         parts = dist.run_sharded(
@@ -1055,7 +1071,7 @@ class BatchedRaccess:
         with torch.no_grad():
             p_w, p_w1 = window_probabilities(self.w, self.d, n_max,
                                              self.dtype, s, lens,
-                                             self._tables[dev])
+                                             self._tables[dev], checked=True)
             acc, cond = accessibility_from_probabilities(
                 p_w, p_w1, lens, self.d, n_max, self.kT)
         return acc.cpu().numpy(), cond.cpu().numpy()

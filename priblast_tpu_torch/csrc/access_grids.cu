@@ -17,14 +17,32 @@
 // [B], the codes [B][S] (1-based, zero padded; a read outside [0, S) is
 // code 0), the lengths [B] int64.
 //
-// A thread per cell (j, b, d), in a grid-stride loop: the cell's closing
-// pair (i, j) = (j - d, j) (outside: (p, q) = (j - d, j)) reads the codes
-// around i and around j, the pair types from bp and rtype[bp], and the
-// float32 Turner tables through the read-only cache (__ldg). A cell writes
-// every plane of its launch, so the writes of a warp are consecutive.
-// Bound on this card: the planes' bytes (15 float planes and 2 bool planes
-// inside, 14 and 2 outside plus a read of multi2), a few dozen operations
-// per cell (chip_smoke.py grids_bound_ms).
+// Bound on this card: the planes' bytes (15 float planes and 2 bool
+// planes inside, 14 and 2 outside plus a read of multi2), a few dozen
+// operations per cell (chip_smoke.py grids_bound_ms).
+//
+// The inside launch runs a thread per cell (j, b, d), span fastest, in a
+// grid-stride loop: a warp's 32 cells of one column read consecutive
+// codes, which the caches serve, and write consecutive spans; it runs at
+// ~1.13x its byte bound (a CTA per row and tile with the codes staged in
+// shared memory ran slower on the card, 1.20-1.54x: access_ab.py --kernel
+// grids).
+//
+// The outside launch cannot: there a cell (q, b, d) reads A[q - d],
+// multi2[q + d][d] and its codes at addresses that move with d, so a
+// thread per cell gathers A at a stride of B values and multi2 at a
+// stride of B band + 1 across a warp, a 32-byte sector for each 4-byte
+// value (1.57x its bound). So it runs a CTA per (row b, tile of `tile`
+// columns), which first stages what its cells read into shared memory,
+// coalesced: the row's codes as bytes over [q0 - band - 1, q0 + tile +
+// 3), 0 outside [0, S); the row's strip of A over [q0 - band + 1, q0 +
+// tile) and of B over the tile; and the parallelogram of multi2 that the
+// tile's cells read (rows r in [q0, q0 + tile + band - 1), the spans d
+// with r - d in the tile), each row's spans a contiguous segment, copied
+// with cp.async. Then its threads take the tile's cells, span fastest,
+// read those from shared memory and the float32 Turner tables through
+// the read-only cache (__ldg), and write every plane, so a warp's writes
+// are a column's consecutive spans. Cell offsets within a CTA are 32-bit.
 //
 // C entry points (ctypes): access_grids_inside_{f32,f64} and
 // access_grids_outside_{f32,f64}. They take (ptrs, sizes, scalars,
@@ -38,6 +56,7 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
+constexpr int kTile = 16;  // columns per CTA where the caller gives 0
 constexpr int kInsideF = 15, kOutsideF = 14;  // float planes per launch
 
 // The float32 Turner tables of the plain versions (batched.py:_F32Tables),
@@ -62,21 +81,58 @@ struct Params {
   T *f[kInsideF];                   // the float planes, in field order
   bool *m[2];                       // the bool planes
   long long n1, B, S, cells;
-  int band;
-  T sig[5];      // sigma^-k, k = 0..4, each rounded to T
-  float b1;      // bulge-length weight of one unpaired base
-  float mlcw;    // float32(W_mlc * W_mli)
-  float lsig;    // float32(log sigma)
+  int band, tile;  // tile: the outside launch's columns per CTA
+  T sig[5];        // sigma^-k, k = 0..4, each rounded to T
+  float b1;        // bulge-length weight of one unpaired base
+  float mlcw;      // float32(W_mlc * W_mli)
+  float lsig;      // float32(log sigma)
 };
 
-__device__ __forceinline__ float ex(float v) { return expf(v); }
-__device__ __forceinline__ double ex(double v) { return exp(v); }
+// The outside launch's shared memory per CTA, in bytes from its start:
+// multi2's parallelogram by cell [tile][band] (at 0), B over the tile and
+// A over [q0 - band + 1, q0 + tile), all in T; then the codes over [q0 -
+// band - 1, q0 + tile + 3) as bytes
+struct Stage {
+  int bq, a, codes, bytes;
+};
+
+__host__ __device__ inline Stage stage_layout(int tile, int band,
+                                              int item) {
+  Stage s;
+  s.bq = tile * band * item;
+  s.a = s.bq + tile * item;
+  s.codes = s.a + (tile + band - 1) * item;
+  s.bytes = (s.codes + tile + band + 4 + 15) / 16 * 16;
+  return s;
+}
+
+// one value from device to shared memory with cp.async (4 or 8 bytes),
+// waited for by copy_wait; a plain copy where no card compiles it
+template <typename T>
+__device__ __forceinline__ void copy_async(T *dst, const T *src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(sizeof(T)));
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+#endif
+}
 
 template <typename T>
 __device__ __forceinline__ int code_at(const Params<T> &p, long long b,
                                        long long pos) {
   return pos >= 0 && pos < p.S ? (int)p.codes[b * p.S + pos] : 0;
 }
+
+__device__ __forceinline__ float ex(float v) { return expf(v); }
+__device__ __forceinline__ double ex(double v) { return exp(v); }
 
 __device__ __forceinline__ int ld(const int *t, int k) { return __ldg(t + k); }
 __device__ __forceinline__ float ld(const float *t, int k) {
@@ -146,29 +202,74 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// batched.py:make_outside_grids for the cell (q, b, d) = (j, b, d): the
+// batched.py:make_outside_grids for the cells (q, b, d) of a tile: the
 // pair (p+1, q) of type T2 inside the closing pair (p, q+1) of type TC,
 // p = q - d; dangle_pq is the inside launch's dangle_ij and is not written
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
     outside_kernel(const Params<T> p) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const Tabs &tb = p.tb;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long N = p.n1 - 1;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < p.cells; idx += stride) {
-    const int d = (int)(idx % p.band);
-    const long long qb = idx / p.band, b = qb % p.B, q = qb / p.B;
-    const long long pp = q - d, n = p.len[b];
-    const int s_p = code_at(p, b, pp), s_p1 = code_at(p, b, pp + 1),
-              s_pm1 = code_at(p, b, pp - 1);
-    const int s_q = code_at(p, b, q), s_q1 = code_at(p, b, q + 1),
-              s_q2 = code_at(p, b, q + 2);
+  const int Q = p.tile, band = p.band;
+  const Stage L = stage_layout(Q, band, sizeof(T));
+  T *m2s = reinterpret_cast<T *>(smem);
+  T *bqs = reinterpret_cast<T *>(smem + L.bq);
+  T *as = reinterpret_cast<T *>(smem + L.a);
+  unsigned char *cs = smem + L.codes;
+  const int b = (int)(blockIdx.x % p.B), q0 = (int)(blockIdx.x / p.B) * Q;
+  const int n1 = (int)p.n1;
+
+  // A over [q0 - band + 1, q0 + Q) and B over the tile, 0 past the ends
+  for (int k = threadIdx.x; k < Q + band - 1; k += blockDim.x) {
+    const int pos = q0 - band + 1 + k;
+    if (pos >= 0 && pos < n1)
+      copy_async(as + k, p.A + (long long)pos * p.B + b);
+    else
+      as[k] = T(0);
+  }
+  for (int k = threadIdx.x; k < Q; k += blockDim.x) {
+    if (q0 + k < n1)
+      copy_async(bqs + k, p.Bo + (long long)(q0 + k) * p.B + b);
+    else
+      bqs[k] = T(0);
+  }
+  // multi2[r][b][d] into the cell (r - d, d), row by row: row r = q0 + rl
+  // holds the spans d in [rl - Q + 1, rl] of the band, a warp's lanes on
+  // consecutive spans; 0 past the last column
+  for (int k = threadIdx.x; k < (Q + band - 1) * Q; k += blockDim.x) {
+    const int rl = k / Q, d = max(0, rl - Q + 1) + (k - rl * Q);
+    if (d > rl || d >= band) continue;
+    T *dst = m2s + (rl - d) * band + d;
+    if (q0 + rl < n1)
+      copy_async(dst, p.multi2 + ((long long)(q0 + rl) * p.B + b) * band + d);
+    else
+      *dst = T(0);
+  }
+  // the codes over [q0 - band - 1, q0 + Q + 3) as bytes, 0 outside [0, S)
+  for (int k = threadIdx.x; k < Q + band + 4; k += blockDim.x)
+    cs[k] = (unsigned char)code_at(p, b, (long long)q0 - band - 1 + k);
+  const int n = (int)p.len[b];
+  const T logZ = p.logZ[b];
+  copy_wait();
+  __syncthreads();
+
+  // the cell (q0 + ql, b, d) lies at base + ql B band + d of every plane
+  const long long base = ((long long)q0 * p.B + b) * band;
+  const int col = (int)p.B * band;
+  const int cells = min(Q, n1 - q0) * band;  // the last tile may be short
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+    const int ql = c / band, d = c - ql * band;
+    const int q = q0 + ql, pp = q - d;
+    // the codes at p and at q
+    const unsigned char *cp = cs + (ql - d + band + 1), *cq = cs + ql + band
+                                                              + 1;
+    const int s_p = cp[0], s_p1 = cp[1], s_pm1 = cp[-1];
+    const int s_q = cq[0], s_q1 = cq[1], s_q2 = cq[2];
     const int T2 = ld(tb.bp, s_p1 * 5 + s_q), T2r = ld(tb.rtbp, s_p1 * 5 + s_q);
     const int TC = ld(tb.bp, s_p * 5 + s_q1), TCr = ld(tb.rtbp, s_p * 5 + s_q1);
     // closing types of the displaced bse cells (p - v1, q + v2)
     auto ct = [&](int v1, int v2) {
-      return ld(tb.bp, code_at(p, b, pp - v1) * 5 + code_at(p, b, q + v2 + 1));
+      return ld(tb.bp, cp[-v1] * 5 + cq[v2 + 1]);
     };
     const int tc10 = ct(1, 0), tc01 = ct(0, 1), tc11 = ct(1, 1),
               tc12 = ct(1, 2), tc21 = ct(2, 1), tc22 = ct(2, 2);
@@ -177,14 +278,12 @@ __global__ void __launch_bounds__(kMaxThreads)
     // taken in float32, the sum in T left to right; 0 where p < 0
     T seed = T(0);
     if (pp >= 0) {
-      const float a = (float)p.A[pp * p.B + b];
+      const float a = (float)as[ql - d + band - 1];
       const float dl = (float)d * p.lsig;
-      seed = ex(((T(a) + p.Bo[q * p.B + b]) - p.logZ[b]) + T(dl));
+      seed = ex(((T(a) + bqs[ql]) - logZ) + T(dl));
     }
-    // multi2[q + d][d], 0 past the last column, the last span times 0
-    const T m2 = q + d <= N ? p.multi2[((q + d) * p.B + b) * p.band + d]
-                            : T(0);
 
+    const long long idx = base + (ql * col + d);
     T *const *f = p.f;
     f[0][idx] = seed;
     f[1][idx] = T(TC != 0 ? ld(tb.mi, (TC * 5 + s_p1) * 5 + s_q)
@@ -214,7 +313,8 @@ __global__ void __launch_bounds__(kMaxThreads)
                      ? T(ld(tb.i22, ((((tc22 * 8 + T2r) * 5 + s_pm1) * 5 +
                                       s_p) * 5 + s_q1) * 5 + s_q2)) * p.sig[4]
                      : T(0);                                  // spo22
-    f[13][idx] = m2 * (d == p.band - 1 ? T(0) : T(1));        // m2diag
+    // multi2[q + d][d], the last span times 0
+    f[13][idx] = m2s[c] * (d == band - 1 ? T(0) : T(1));      // m2diag
     p.m[0][idx] = T2 != 0;                                    // t2_nz
     p.m[1][idx] = pp > 0 && q != n;                           // valid_int
   }
@@ -222,17 +322,27 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // one launch of `kern`; the only launch site of this file
 template <typename P>
-int run(void (*kern)(P), long long grid, int threads, void *stream,
-        const P &p) {
-  kern<<<(int)grid, threads, 0, (cudaStream_t)stream>>>(p);
+int run(void (*kern)(P), long long grid, int threads, int bytes,
+        void *stream, const P &p) {
+  if (bytes > 48 * 1024) {
+    int dev = 0, max_smem = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    if (bytes > max_smem) return (int)cudaErrorInvalidConfiguration;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+  }
+  kern<<<(int)grid, threads, bytes, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 // ptrs: codes (int64), lengths (int64), bp, rtbp (int32), stack, mi, mh,
 //   i11, i21, i22, d5, d3, au, hl, sigp (float32); outside: A, B, logZ,
 //   multi2; then the float planes in field order and the two bool planes;
-// sizes: N+1, B, band, S (codes per row), threads per block, blocks (0:
-//   one thread per cell);
+// sizes: N+1, B, band, S (codes per row), threads per CTA; the inside
+//   launch's CTAs (0: a thread per cell; fewer stride over the cells);
+//   the outside launch's columns per CTA (0: kTile);
 // scalars: sigma^-1 .. sigma^-4 (each rounded to T), b1, float32(W_mlc
 //   W_mli), log sigma (each a float32 value)
 template <typename T>
@@ -259,10 +369,15 @@ int launch(bool outside, void *const *ptrs, const long long *sizes,
   for (int i = 0; i < 2; ++i) p.m[i] = (bool *)ptrs[k++];
   p.n1 = sizes[0];
   p.B = sizes[1];
-  p.band = (int)sizes[2];
   p.S = sizes[3];
   const int threads = (int)sizes[4];
   const long long blocks = sizes[5];
+  if (p.n1 < 0 || p.B < 0 || sizes[2] < 1 || sizes[2] > 4096 || p.S < 1 ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      blocks < 0 || sizes[6] < 0 || sizes[6] > 4096)
+    return (int)cudaErrorInvalidConfiguration;
+  p.band = (int)sizes[2];
+  p.tile = sizes[6] > 0 ? (int)sizes[6] : kTile;
   p.sig[0] = T(1);
   for (int i = 1; i <= 4; ++i) p.sig[i] = (T)scalars[i - 1];
   p.b1 = (float)scalars[4];
@@ -270,13 +385,18 @@ int launch(bool outside, void *const *ptrs, const long long *sizes,
   p.lsig = (float)scalars[6];
   p.cells = p.n1 * p.B * p.band;
   if (p.cells == 0) return 0;
-  if (p.n1 < 0 || p.B < 0 || p.band < 1 || p.S < 1 || threads < 32 ||
-      threads > kMaxThreads || threads % 32 != 0 || blocks < 0)
+  if (!outside) {
+    long long grid = blocks > 0 ? blocks : (p.cells + threads - 1) / threads;
+    if (grid > 0x7fffffff) grid = 0x7fffffff;  // the loop strides the rest
+    return run(inside_kernel<T>, grid, threads, 0, stream, p);
+  }
+  // a CTA per row and tile; 32-bit columns, rows and offsets in a tile
+  const long long grid = (p.n1 + p.tile - 1) / p.tile * p.B;
+  if (grid > 0x7fffffff || p.n1 + p.tile > 0x7fffffff ||
+      (long long)p.tile * p.B * p.band > 0x7fffffff)
     return (int)cudaErrorInvalidConfiguration;
-  long long grid = blocks > 0 ? blocks : (p.cells + threads - 1) / threads;
-  if (grid > 0x7fffffff) grid = 0x7fffffff;  // the loop strides the rest
-  return outside ? run(outside_kernel<T>, grid, threads, stream, p)
-                 : run(inside_kernel<T>, grid, threads, stream, p);
+  const int bytes = stage_layout(p.tile, p.band, sizeof(T)).bytes;
+  return run(outside_kernel<T>, grid, threads, bytes, stream, p);
 }
 
 }  // namespace

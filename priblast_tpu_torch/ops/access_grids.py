@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from pathlib import Path
 
 import numpy as np
@@ -27,7 +28,9 @@ from priblast_tpu_torch.accessibility import batched as ab
 from priblast_tpu_torch.ops import access_scan, nvcc
 
 SRC = Path(__file__).resolve().parents[1] / "csrc" / "access_grids.cu"
-THREADS = 256  # threads per block; a thread per cell
+THREADS = 256  # threads per CTA of both launches
+TILE = 16      # the outside launch's columns per CTA (a CTA per row and
+               # tile); the inside launch runs a thread per cell
 
 inside_grids_launches = 0   # kernel launches by inside_grids(); plain calls
 outside_grids_launches = 0  # and empty batches not counted
@@ -89,6 +92,7 @@ def _tables(w_span: int, device):
             f(np.asarray(lm.sig_pow)[:band]))
 
 
+@functools.lru_cache(maxsize=16)
 def _scalars(w_span: int, dtype):
     """sigma^-1 .. sigma^-4, each rounded to the dtype as the plain
     versions round it; the float32 bulge weight of one unpaired base,
@@ -101,7 +105,7 @@ def _scalars(w_span: int, dtype):
             float(np.float32(lm.lsig)))
 
 
-def _check(s_padded, lengths, n_max: int, band: int):
+def _check(s_padded, lengths, n_max: int, band: int, checked: bool):
     if not isinstance(s_padded, torch.Tensor) or s_padded.dim() != 2:
         raise ValueError("s_padded must be a [B, S] tensor")
     dev = s_padded.device
@@ -110,15 +114,17 @@ def _check(s_padded, lengths, n_max: int, band: int):
         raise ValueError(f"the band must span at least 3, not {band}")
     nvcc.check_tensor(s_padded, "s_padded", (B, s_padded.shape[1]),
                       torch.int64, dev)
-    access_scan._check_lengths(lengths, n_max, B, dev)
+    access_scan._check_lengths(lengths, n_max, B, dev, checked)
     return dev, B
 
 
 def inside_grids(t: ab.Tables, s_padded, lengths, n_max: int, band: int,
-                 dtype) -> ab.Grids:
+                 dtype, *, checked: bool = False) -> ab.Grids:
     """The inside weight grids of a batch, as make_grids: s_padded [B, S]
-    int64 codes (1-based, zero padded), lengths [B] int64 in [0, n_max]."""
-    dev, B = _check(s_padded, lengths, n_max, band)
+    int64 codes (1-based, zero padded), lengths [B] int64 in [0, n_max];
+    `checked`: the caller has checked their range on the host, so none is
+    read from the device."""
+    dev, B = _check(s_padded, lengths, n_max, band, checked)
     if dev.type == "cpu":
         return ab.make_grids(t, s_padded, lengths, n_max, band, dtype)
     if dev.type != "cuda":
@@ -133,13 +139,13 @@ def inside_grids(t: ab.Tables, s_padded, lengths, n_max: int, band: int,
 
 
 def outside_grids(t: ab.Tables, s_padded, lengths, n_max: int, band: int,
-                  dtype, g: ab.Grids, multi2_full, A_full, B_full,
-                  logZ) -> ab.OutsideGrids:
+                  dtype, g: ab.Grids, multi2_full, A_full, B_full, logZ, *,
+                  checked: bool = False) -> ab.OutsideGrids:
     """The outside weight grids of a batch, as make_outside_grids, from the
     inside grids `g` (their dangle_ij becomes dangle_pq) and the inside
     scan's multi2 [N+1, B, band], A and B [N+1, B] and logZ [B], all
-    contiguous in `dtype`."""
-    dev, B = _check(s_padded, lengths, n_max, band)
+    contiguous in `dtype`; `checked` as for inside_grids."""
+    dev, B = _check(s_padded, lengths, n_max, band, checked)
     n1 = n_max + 1
     nvcc.check_tensor(g.dangle_ij, "dangle_ij", (n1, B, band), dtype, dev)
     nvcc.check_tensor(multi2_full, "multi2", (n1, B, band), dtype, dev)
@@ -162,11 +168,13 @@ def outside_grids(t: ab.Tables, s_padded, lengths, n_max: int, band: int,
 
 
 def _grids_call(fn, s_padded, lengths, n_max: int, band: int, dtype, stream,
-                outside=None, threads: int = THREADS, blocks: int = 0):
+                outside=None, threads: int = THREADS, blocks: int = 0,
+                tile: int = TILE):
     """Allocate the planes and call a C entry point of csrc/access_grids.cu
-    (`fn`) on checked arguments on `stream`: the inside launch, or, with
-    `outside` = (g, A, B, logZ, multi2), the outside one. `blocks` = 0
-    gives a thread per cell; fewer blocks stride over the cells."""
+    (`fn`) on checked arguments on `stream`: the inside launch (`blocks`
+    CTAs of `threads`; 0 gives a thread per cell, fewer stride over the
+    cells), or, with `outside` = (g, A, B, logZ, multi2), the outside one
+    (a CTA of `threads` per row and `tile` columns)."""
     dev = s_padded.device
     B = s_padded.shape[0]
     shape = (n_max + 1, B, band)
@@ -175,10 +183,15 @@ def _grids_call(fn, s_padded, lengths, n_max: int, band: int, dtype, stream,
     flags = torch.empty((2, *shape), dtype=torch.bool, device=dev)
     extra = () if outside is None else tuple(x.data_ptr()
                                              for x in outside[1:])
+    # each plane's address from its buffer's: a view per plane costs
+    # microseconds of host time, as many as the launch
+    cells = math.prod(shape)
+    p0, f0, item = planes.data_ptr(), flags.data_ptr(), planes.element_size()
     ptrs = (s_padded.data_ptr(), lengths.data_ptr(),
             *(x.data_ptr() for x in _tables(band - 2, dev)), *extra,
-            *(x.data_ptr() for x in planes), *(x.data_ptr() for x in flags))
-    sizes = (n_max + 1, B, band, s_padded.shape[1], threads, blocks)
+            *(p0 + k * cells * item for k in range(len(names))),
+            f0, f0 + cells)
+    sizes = (n_max + 1, B, band, s_padded.shape[1], threads, blocks, tile)
     scalars = _scalars(band - 2, dtype)
     err = fn((ctypes.c_void_p * len(ptrs))(*ptrs),
              (ctypes.c_longlong * len(sizes))(*sizes),
@@ -186,8 +199,9 @@ def _grids_call(fn, s_padded, lengths, n_max: int, band: int, dtype, stream,
     if err != 0:
         raise RuntimeError(f"access_grids kernel launch failed: CUDA error "
                            f"{err}")
-    out = dict(zip(names, planes))
+    out = dict(zip(names, planes.unbind(0)))
+    m0, m1 = flags.unbind(0)
     if outside is None:
-        return ab.Grids(t1_nz=flags[0], validC=flags[1], **out)
-    return ab.OutsideGrids(t2_nz=flags[0], dangle_pq=outside[0].dangle_ij,
-                           valid_int=flags[1], **out)
+        return ab.Grids(t1_nz=m0, validC=m1, **out)
+    return ab.OutsideGrids(t2_nz=m0, dangle_pq=outside[0].dangle_ij,
+                           valid_int=m1, **out)

@@ -80,6 +80,7 @@ def _tables(w_span: int, dtype, device):
             f(lm.W_int21, np.float32), f(lm.W_int22, np.float32))
 
 
+@functools.lru_cache(maxsize=16)
 def _scalars(w_span: int, w: int, dtype):
     """sigma^-1 .. sigma^-4, sigma^-w, sigma^-(w+1) and 128 ln 2, each
     rounded to the dtype as the plain version rounds it, and the float32
@@ -101,7 +102,7 @@ def _scratch_slots(w: int, band: int) -> int:
 
 
 def _check(g, s_padded, lengths, w: int, n_max: int, band: int, dtype, ins,
-           outs):
+           outs, checked: bool):
     if len(ins) != 8 or len(outs) != 5:
         raise ValueError("ins must hold 8 tensors and outs 5")
     dev = g.hpW.device
@@ -120,20 +121,22 @@ def _check(g, s_padded, lengths, w: int, n_max: int, band: int, dtype, ins,
         raise ValueError("s_padded must be [B, S]")
     nvcc.check_tensor(s_padded, "s_padded", (B, s_padded.shape[1]),
                       torch.int64, dev)
-    access_scan._check_lengths(lengths, n_max, B, dev)
+    access_scan._check_lengths(lengths, n_max, B, dev, checked)
     if w < 1:
         raise ValueError(f"the window size must be at least 1, not {w}")
     return dev, B
 
 
 def window_probs(t: ab.Tables, g: ab.Grids, s_padded, lengths,
-                 min_acc_len: int, n_max: int, band: int, dtype, ins, outs):
+                 min_acc_len: int, n_max: int, band: int, dtype, ins, outs,
+                 *, checked: bool = False):
     """(p_w, p_w1), each [N+2, B], as scan_probabilities: `ins` the inside
     scan's eight outputs (six planes, A_full, B_full), `outs` the outside
     scan's five planes, all contiguous; s_padded [B, S] int64 codes;
-    lengths [B] int64 in [0, n_max]."""
+    lengths [B] int64 in [0, n_max]; `checked`: the caller has checked
+    their range on the host, so none is read from the device."""
     dev, B = _check(g, s_padded, lengths, min_acc_len, n_max, band, dtype,
-                    ins, outs)
+                    ins, outs, checked)
     if dev.type == "cpu":
         return ab.scan_probabilities(t, g, s_padded, lengths, min_acc_len,
                                      n_max, band, dtype, ins, outs)

@@ -86,10 +86,17 @@ def _check_tables(t: ab.Tables, band: int, dtype, device) -> None:
     nvcc.check_tensor(t.Lmat, "Lmat", (band, band), dtype, device)
 
 
-def _check_lengths(lengths, n_max: int, B: int, device) -> None:
+def _check_lengths(lengths, n_max: int, B: int, device,
+                   checked: bool = False) -> None:
+    """Raise ValueError unless `lengths` is a [B] int64 tensor on `device`
+    whose values lie in [0, n_max]. The values are read from the device
+    (one read, which on a card waits for its queue to drain) unless the
+    caller has `checked` them on the host."""
     nvcc.check_tensor(lengths, "lengths", (B,), torch.int64, device)
-    if B and (int(lengths.min()) < 0 or int(lengths.max()) > n_max):
-        raise ValueError(f"lengths must lie in [0, {n_max}]")
+    if B and not checked:
+        lo, hi = torch.stack(torch.aminmax(lengths)).tolist()
+        if lo < 0 or hi > n_max:
+            raise ValueError(f"lengths must lie in [0, {n_max}]")
 
 
 def _scalars(t: ab.Tables, dtype):
@@ -129,16 +136,17 @@ def outside_plain(t: ab.Tables, og: ab.OutsideGrids, multi1_full,
 
 
 def inside_scan(t: ab.Tables, g: ab.Grids, lengths: torch.Tensor,
-                n_max: int, band: int, dtype):
+                n_max: int, band: int, dtype, *, checked: bool = False):
     """The inside pass and both exterior scans of a batch: (stem, stem_m,
     stem_a, multi, multi1, multi2, A_full, B_full), as `inside_plain`.
     Grids [N+1, B, band] contiguous (t1_nz and validC bool), lengths [B]
-    int64 in [0, n_max]."""
+    int64 in [0, n_max]; `checked`: the caller has checked their range on
+    the host, so none is read from the device."""
     dev = g.stackW.device
     B = g.stackW.shape[1] if g.stackW.dim() == 3 else 0
     _check_grids(g, (n_max + 1, B, band), dtype, dev)
     _check_tables(t, band, dtype, dev)
-    _check_lengths(lengths, n_max, B, dev)
+    _check_lengths(lengths, n_max, B, dev, checked)
     if dev.type == "cpu":
         return inside_plain(t, g, lengths, n_max, band, dtype)
     if dev.type != "cuda":

@@ -14,10 +14,16 @@ d lsig), within 2 ulps: the host's expf / exp runs here, as the card's
 runs there, and may round otherwise than PyTorch's exp.
 
 Cases: float32 and float64, at band 72 (the CLI's span of 70) and band 42;
-the kernel in a few blocks that stride over every cell, and in a thread
-per cell; one row alone against the same row in a batch of two. This
-runs the kernel's own arithmetic and indexing on a machine without a
-card; the card's comparison is tests/test_torch_gpu.py and chip_smoke.py.
+the inside launch in a few CTAs that stride over the cells and in a
+thread per cell; the outside launch in CTAs of one row and a tile of
+columns, at the wrapper's geometry and at others: tiles of 5, 7, 16 and
+100 columns, so that 293 columns (N + 1 of the longest row) are never a
+multiple of the tile and the last tile straddles the end, the first
+tiles hold columns q < band (p = q - d < 0), the last ones cells with
+q + d > N, and the 40-nt row is shorter than the band; one row alone
+against the same row in a batch of two. This runs the kernel's own
+arithmetic, indexing and staging on a machine without a card; the card's
+comparison is tests/test_torch_gpu.py and chip_smoke.py.
 """
 
 import functools
@@ -39,8 +45,11 @@ torch.set_num_threads(1)
 
 DATA = Path(__file__).resolve().parent / "data"
 N_SEQ, SHORT = 4, 40
-# the emulated launch: a few blocks whose threads stride over the cells
-EMU_THREADS, EMU_BLOCKS = 64, 2
+# the emulated launches: CTAs of 64 threads; inside two, which stride over
+# the cells, outside each a row and 5 columns
+EMU_THREADS, EMU_BLOCKS, EMU_TILE = 64, 2, 5
+# other (threads per CTA, columns per CTA) of the launch
+GEOMETRIES = [(96, 7), (32, 100)]
 SEED_ULPS = 2
 _INT_VIEW = {torch.float32: torch.int32, torch.float64: torch.int64}
 
@@ -82,7 +91,7 @@ def _emu(lib, side, dtype, s, lens, n_max, band, outside=None, **kw):
                  f"{'f64' if dtype == torch.float64 else 'f32'}")
     return ag._grids_call(fn, s, lens, n_max, band, dtype, 0, outside,
                           **{"threads": EMU_THREADS, "blocks": EMU_BLOCKS,
-                             **kw})
+                             "tile": EMU_TILE, **kw})
 
 
 def _ulps(a, b):
@@ -125,25 +134,26 @@ def test_grids_kernel_source_matches_plain_versions(emu_lib, dtype, band):
 
 
 def test_grids_kernel_source_one_thread_per_cell(emu_lib):
-    """The wrapper's launch shape, a thread per cell (blocks = 0), on rows
-    0 and 3 (the 40-nt one) in float32: the plain versions' planes."""
+    """The wrapper's launch geometry (its threads per CTA and tile), on
+    rows 0 and 3 (the 40-nt one) in float32: the plain versions'
+    planes."""
     dt, band = torch.float32, 42
     t, s, lens, n_max, _g, ins = _batch(dt, band)
     rows = torch.tensor([0, N_SEQ - 1])
     s2, lens2 = s[rows].contiguous(), lens[rows].contiguous()
     ins2 = tuple(x.index_select(1, rows).contiguous() for x in ins)
     g2 = ab.make_grids(t, s2, lens2, n_max, band, dt)
+    geometry = {"threads": ag.THREADS, "blocks": 0, "tile": ag.TILE}
     _assert_planes(_emu(emu_lib, "inside", dt, s2, lens2, n_max, band,
-                        blocks=0, threads=256), g2, dt)
+                        **geometry), g2, dt)
     args = _outside_args(lens2, ins2)
     _assert_planes(_emu(emu_lib, "outside", dt, s2, lens2, n_max, band,
-                        (g2, *args[1:], args[0]), blocks=0, threads=256),
+                        (g2, *args[1:], args[0]), **geometry),
                    ab.make_outside_grids(t, s2, lens2, n_max, band, dt, g2,
                                          *args), dt)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_grids_kernel_source_row_alone_equals_row_in_a_pair(emu_lib, dtype):
+def _row_alone_and_in_a_pair(lib, dtype, **geometry):
     """Row 3 (40 nt) alone, and with row 1 in a batch of two: the same bits
     in every plane of both launches."""
     dt, band = ab._DTYPES[dtype], 72
@@ -153,13 +163,50 @@ def test_grids_kernel_source_row_alone_equals_row_in_a_pair(emu_lib, dtype):
         idx = torch.tensor(rows)
         sub = tuple(x.index_select(1, idx).contiguous() for x in ins)
         s_r, l_r = s[idx].contiguous(), lens[idx].contiguous()
-        gi = _emu(emu_lib, "inside", dt, s_r, l_r, n_max, band)
+        gi = _emu(lib, "inside", dt, s_r, l_r, n_max, band, **geometry)
         args = _outside_args(l_r, sub)
-        go = _emu(emu_lib, "outside", dt, s_r, l_r, n_max, band,
-                  (gi, *args[1:], args[0]))
+        go = _emu(lib, "outside", dt, s_r, l_r, n_max, band,
+                  (gi, *args[1:], args[0]), **geometry)
         return gi, go
 
     alone, pair = run([N_SEQ - 1]), run([1, N_SEQ - 1])
     for a_planes, p_planes in zip(alone, pair):
         for name, a, p in zip(a_planes._fields, a_planes, p_planes):
             assert torch.equal(a[:, 0], p[:, 1]), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_grids_kernel_source_row_alone_equals_row_in_a_pair(emu_lib, dtype):
+    """Row 3 (40 nt) alone, and with row 1 in a batch of two: the same bits
+    in every plane of both launches."""
+    _row_alone_and_in_a_pair(emu_lib, dtype)
+
+
+@pytest.mark.parametrize("threads,tile", GEOMETRIES)
+def test_grids_kernel_source_row_alone_in_other_tiles(emu_lib, threads,
+                                                      tile):
+    """The same at other geometries: a row's bits do not depend on the
+    batch's other row, whatever the tile."""
+    _row_alone_and_in_a_pair(emu_lib, "float32", threads=threads, tile=tile)
+
+
+@pytest.mark.parametrize("threads,tile", GEOMETRIES)
+@pytest.mark.parametrize("band", [72, 42])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_grids_kernel_source_tiles_match_plain_versions(emu_lib, dtype, band,
+                                                         threads, tile):
+    """Both launches at other geometries against make_grids and
+    make_outside_grids, plane by plane (bit for bit, the seed within 2
+    ulps): N + 1 not a multiple of the tile, so the last tile straddles
+    the end of every row; columns q < band and cells with q + d > N in
+    every row; the 40-nt row shorter than the band."""
+    dt = ab._DTYPES[dtype]
+    t, s, lens, n_max, g, ins = _batch(dt, band)
+    assert (n_max + 1) % tile != 0 and int(lens.min()) < band
+    geometry = {"threads": threads, "tile": tile}
+    _assert_planes(_emu(emu_lib, "inside", dt, s, lens, n_max, band,
+                        **geometry), g, dt)
+    args = _outside_args(lens, ins)
+    og = ab.make_outside_grids(t, s, lens, n_max, band, dt, g, *args)
+    _assert_planes(_emu(emu_lib, "outside", dt, s, lens, n_max, band,
+                        (g, *args[1:], args[0]), **geometry), og, dt)

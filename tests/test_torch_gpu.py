@@ -599,6 +599,54 @@ def test_grids_kernels_match_plain_versions_on_the_card(dtype):
                 assert torch.equal(a, b), name
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("threads,tile", [(256, 32), (512, 16), (96, 7),
+                                          (1024, 64), (32, 300)])
+def test_grids_outside_launch_geometries_on_the_card(threads, tile):
+    """The outside launch (a CTA per row and tile of columns, its inputs
+    staged in shared memory) at other geometries than the wrapper's,
+    against make_outside_grids on the card: every plane bit for bit, the
+    seed within 2 ulps; tiles that straddle the rows' ends (N + 1 = 293
+    columns), a tile wider than a row, float32 and float64 in one run."""
+    dev = _card()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for dt in (torch.float32, torch.float64):
+        t, g, s, lens, n_max, args = _grids_inputs(dev, dt)
+        ref = ab.make_outside_grids(t, s, lens, n_max, 72, dt, g, *args)
+        m2, A, Bo, logZ = args
+        got = ag._grids_call(ag._fn("outside", dt), s, lens, n_max, 72, dt,
+                             stream, (g, A, Bo, logZ, m2), threads=threads,
+                             tile=tile)
+        torch.cuda.synchronize()
+        for name, a, b in zip(ref._fields, got, ref):
+            if name == "seed":
+                assert _grid_ulps(a, b) <= 2, name
+            else:
+                assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_window_probabilities_reads_nothing_back_when_checked():
+    """window_probabilities told that the lengths are checked (as
+    BatchedRaccess calls it) makes no synchronising call on the card, in
+    any of its four wrappers: it runs under
+    torch.cuda.set_sync_debug_mode("error"), and gives the bits of the
+    call that checks the lengths itself."""
+    dev = _card()
+    t, _g, s, lens, n_max = _access_batch(dev)
+    ab.window_probabilities(70, 5, n_max, torch.float32, s, lens, t,
+                            checked=True)  # the wrappers' tables, cached
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ab.window_probabilities(70, 5, n_max, torch.float32, s, lens,
+                                      t, checked=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = ab.window_probabilities(70, 5, n_max, torch.float32, s, lens, t)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
 @pytest.mark.parametrize("side,bad", [
     ("inside", "dtype"), ("inside", "shape"), ("inside", "contiguous"),
     ("inside", "device"), ("inside", "lengths"), ("outside", "dtype"),
