@@ -20,7 +20,8 @@ batch that `ris` (or `db`) plans for those sequences (`plan_batches`), as
   load_outside and outside;
 - load_prob: the probability kernel's library (`ops/access_prob.py:_lib`);
 - probability_pass: the probability kernel's call (`window_probs`);
-- epilogue: accessibility_from_probabilities and the copy back.
+- epilogue: the epilogue kernel's call (`accessibility`, as
+  `BatchedRaccess._run_rows` calls it) and the one copy back.
 The first pass holds every first use (libraries, the kernels' modules and
 shared-memory attributes, PyTorch's first launches and allocations); the
 second holds none. The kernels' libraries must be built already
@@ -110,9 +111,9 @@ def child(work: Path, fa: str) -> None:
                     checked=True))
 
                 def epilogue():
-                    acc, cond = ab.accessibility_from_probabilities(
-                        *pw, lens, dmin, n_max, kT)
-                    return acc.cpu().numpy(), cond.cpu().numpy()
+                    out = access_prob.accessibility(*pw, lens, dmin, n_max,
+                                                    kT, checked=True)
+                    return out.cpu().numpy()
 
                 part("epilogue", epilogue)
         print(f"[first-use] {name} {fa} {len(batches)} batches ({shapes}) "

@@ -7,21 +7,25 @@ Phases (any failure ends the run with a non-zero exit code):
   1. device: the card's name and power limit, torch and CUDA versions, the
      host's core count (os.cpu_count() and the affinity mask), and the
      devices `--device cuda` gives this process (every card);
-  2. build: the native host library (g++) and the six CUDA kernel
+  2. build: the native host library (g++) and the seven CUDA kernel
      sources (nvcc, sm_90a: the gapped extension, the ungapped extension,
-     the accessibility weight grids, inside scan, outside scan and
-     probability pass), all from this checkout, started together;
+     the fused stage's expansion and threshold, the accessibility weight
+     grids, inside scan, outside scan, and the probability pass with the
+     epilogue), all from this checkout, started together;
   3. main path at full size: a seeded workload the size of bench.py's
      (100 queries of ~1,000 nt against 20 db sequences of ~5,000 nt,
      first-order Markov sequences of transcript-like composition) through
      `db --engine gpu` and `ris --engine gpu` on cuda, with the router
      pinned to the device chain (PRIBLAST_DEVICE_EXTEND=1), whose search is
-     the fused path (host seed DFS, device expansion, the ungapped kernel,
-     threshold, host mid, the gapped kernel, host finish) and whose
-     accessibility runs the grid kernel's two launches, the two scan
-     kernels and the probability kernel; the kernels' launch counts (and
-     the calls of the grids' plain versions, which must be none), the
-     stage seconds (`ris.fused` split into its
+     the fused path (host seed DFS, the expansion kernel, the ungapped
+     kernel, the threshold kernel, host mid, the gapped kernel, host
+     finish) and whose accessibility runs the grid kernel's two launches,
+     the two scan kernels, the probability kernel and the epilogue; the
+     kernels' launch counts (the expansion's against one per pair block,
+     the threshold's against the ungapped kernel's) and the calls of the
+     plain versions that the kernels replace (make_grids,
+     make_outside_grids, accessibility_from_probabilities, _expand_core,
+     _thresh_core: none), the stage seconds (`ris.fused` split into its
      synchronised sub-stages), the peak device memory, and the mid stage's
      seconds and CPU seconds are read around that run; then the gapped
      kernel's overflow: the hits past max_ext, the host fallback's seconds
@@ -35,8 +39,12 @@ Phases (any failure ends the run with a non-zero exit code):
      path's inputs, warm and after the C heap's free pages went back to
      the OS (malloc_trim), which splits their first runs' excess; one
      pair block of the main path's wave again, at its block size, with
-     the device memory it takes per pair held to fused.PAIR_BYTES; then
-     the staged oracle
+     the device memory it takes per pair held to fused.PAIR_BYTES, and on
+     that block the expansion kernel's survivors held bit for bit to
+     _expand_core's and the threshold's records to _thresh_core's on the
+     same ungapped output, each timed beside its plain version, its byte
+     bound and (the threshold) the library's compaction, torch.nonzero
+     and boolean indexing; then the staged oracle
      (seed_stage -> ungapped_stage -> threshold_stage) against the fused
      stage on the first 20 queries, same packs and accessibilities:
      identical post-threshold streams;
@@ -74,7 +82,8 @@ Phases (any failure ends the run with a non-zero exit code):
      and the ris body byte for byte against the main path's, the
      kernels' launches equal to the plan (one per non-empty shard of every
      accessibility batch and pair block, two per non-empty shard of every
-     gapped hit batch), the walls beside the main path's; then
+     gapped hit batch), no plain version called, the walls beside the main
+     path's; then
      parallel/dist.py:dryrun_multichip with [cuda:0] * 2 and [cuda:0] * 4
      (bit for bit against one device) and [cuda:0, cpu] (within its
      tolerance; on one card, what shows a tensor on the wrong device);
@@ -111,14 +120,18 @@ Phases (any failure ends the run with a non-zero exit code):
      kernel's device time by launch (window and sum kernels, from
      torch.profiler) and its window kernel's two instantiations (stem rows
      staged in shared memory, or read from device memory) held bit for
-     bit and timed in turns;
-  7b. nosync: window_probabilities on the same db and ris batches, called
-     as BatchedRaccess calls it (the lengths' range checked on the host),
-     under torch.cuda.set_sync_debug_mode("error") from after the codes'
-     and lengths' H2D to before the results' D2H, so that any
-     synchronising call in the four accessibility wrappers fails the run;
-     each accessibility kernel launched once, and the bits of the call
-     that checks the lengths itself.
+     bit and timed in turns; the epilogue kernel on the probability
+     kernel's output against accessibility_from_probabilities, bit for
+     bit, with its time, the plain version's and its byte bound, and a
+     check that PyTorch divides a tensor by a host scalar on this card as
+     the kernel does (a product with the float32 reciprocal);
+  7b. nosync: window_probabilities and the epilogue on the same db and ris
+     batches, called as BatchedRaccess calls them (the lengths' range
+     checked on the host), under torch.cuda.set_sync_debug_mode("error")
+     from after the codes' and lengths' H2D to before the results' D2H,
+     so that any synchronising call in the five accessibility wrappers
+     fails the run; each accessibility kernel launched once, and the bits
+     of the calls that check the lengths themselves.
 The last lines are the kernels' JSON record, the card line from nvidia-smi
 and {"ok": true, "device": {...}}.
 """
@@ -162,7 +175,8 @@ COUNTING_CLI = """
 import json, sys
 from priblast_tpu_torch import cli
 from priblast_tpu_torch.ops import (access_grids, access_prob, access_scan,
-                                    gapped_sweep, ungapped_extend)
+                                    fused_expand, gapped_sweep,
+                                    ungapped_extend)
 cli.main(sys.argv[1:])
 print(json.dumps({"access_grids_inside": access_grids.inside_grids_launches,
                   "access_grids_outside":
@@ -170,6 +184,9 @@ print(json.dumps({"access_grids_inside": access_grids.inside_grids_launches,
                   "access_inside": access_scan.inside_launches,
                   "access_outside": access_scan.outside_launches,
                   "access_prob": access_prob.prob_launches,
+                  "access_epilogue": access_prob.epilogue_launches,
+                  "fused_expand": fused_expand.expand_launches,
+                  "fused_threshold": fused_expand.threshold_launches,
                   "ungapped_extend": ungapped_extend.launches,
                   "gapped_extend": gapped_sweep.launches}))
 """
@@ -776,6 +793,80 @@ def grids_bound_ms(B: int, n1: int, band: int, S: int, item: int,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def expand_bound_ms(d: int, max_len: int, o: int, B: int, wb, qp, dp,
+                    n_kept: int):
+    """Least time the card could take for the fused stage's expansion of
+    pairs o .. o + B - 1 (csrc/fused_expand.cu), by bytes, from this run's
+    pairs: each input byte the block needs read once (its candidates' rows,
+    hybrid energies and prefix entries; the suffix-array and position-map
+    entries its pairs read, each distinct entry once; the accessibility
+    entries their windows cover, each once) and the n_kept survivors' 13
+    columns written once (104 bytes each). The kept flags and tile counts,
+    scratch of the compaction, are not counted; its operations (a few adds
+    and compares per pair) bound it far less. Returns (bound ms, "bytes",
+    the bytes)."""
+    import torch
+
+    dev = wb.cum.device
+    pid = torch.arange(o, o + B, device=dev)
+    ci = torch.searchsorted(wb.cum, pid, right=True) - 1
+    n_cand = int(ci[-1] - ci[0]) + 1
+    row = wb.cand[:, ci]
+    off = pid - wb.cum[ci]
+    ki = torch.div(off, row[6], rounding_mode="floor")
+    qsa, dsa = row[0] + off - ki * row[6], row[1] + ki
+    q_sp, db_sp = qp.sa[qsa], dp.sa[dsa]
+    length = row[2]
+    pos = row[5] + db_sp
+    start = dp.pos_ls[pos] - db_sp - length
+    end = length.clamp(max=max_len)
+
+    def covered(n: int, lo, hi) -> int:
+        """Entries of a buffer of n that the intervals [lo, hi) cover."""
+        lo, hi = lo.clamp(0, n), hi.clamp(0, n)
+        keep = hi > lo
+        mark = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        one = torch.ones(int(keep.sum()), dtype=torch.int32, device=dev)
+        mark.index_add_(0, lo[keep], one)
+        mark.index_add_(0, hi[keep], -one)
+        return int((torch.cumsum(mark, 0)[:n] > 0).sum())
+
+    qa = row[4] + q_sp
+    da, dc = dp.pos_aoff[pos] + start, dp.pos_coff[pos] + start
+    entries = (covered(qp.bufs[1].shape[0], qa, qa + 1)
+               + covered(qp.bufs[2].shape[0], qa + d, qa + end)
+               + covered(dp.bufs[1].shape[0], da, da + 1)
+               + covered(dp.bufs[2].shape[0], dc + d, dc + end))
+    distinct = (int(torch.unique(qsa).numel()) + int(torch.unique(
+        dsa).numel())) * 8 + int(torch.unique(pos).numel()) * 32
+    nbytes = (n_cand * (7 * 8 + 8 + 8) + 8 + distinct + 4 * entries
+              + 104 * n_kept)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def threshold_bound_ms(n: int, n_kept: int):
+    """Least time the card could take for the fused stage's threshold of n
+    ungapped hits of which n_kept pass (csrc/fused_expand.cu), by bytes,
+    the copy to the host not included: every hit's float32 energy read
+    once; each kept hit's fields read once (q_sp, db_sp, the new length,
+    dbseq_start, dbseq_id and pid as int64, acc_e and hyb_e as float32: 56
+    bytes) and its packed record written once (44 bytes). Returns (bound
+    ms, "bytes", the bytes)."""
+    nbytes = 4 * n + (56 + 44) * n_kept
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def epilogue_bound_ms(B: int, n_max: int, item: int):
+    """Least time the card could take for the accessibility epilogue of B
+    rows of n_max columns (csrc/access_prob.cu: epilogue_kernel), by bytes:
+    p_w and p_w1 at the n_max window starts read once (`item` bytes a
+    value) and the lengths; acc and cond written once (float32). Its
+    operations (two logs and a few products per element) bound it less.
+    Returns (bound ms, "bytes")."""
+    nbytes = 2 * B * n_max * item + 8 * B + 2 * B * n_max * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
 def grids_diff(got, ref):
     """(the planes that differ but the seed, the seed's largest distance in
     ulps, the largest |got - ref| over the float planes) of two grids
@@ -911,6 +1002,7 @@ def main() -> int:
     from priblast_tpu_torch.ops import access_grids as ag
     from priblast_tpu_torch.ops import access_prob as ap
     from priblast_tpu_torch.ops import access_scan as acs
+    from priblast_tpu_torch.ops import fused_expand as fexp
     from priblast_tpu_torch.ops import gapped_sweep, native
     from priblast_tpu_torch.ops import ungapped_extend as uop
     from priblast_tpu_torch.search import fused, gapped, pipeline, seed
@@ -948,7 +1040,8 @@ def main() -> int:
     builds = {"native": native.build, "gapped_extend": gapped_sweep.build,
               "ungapped_extend": uop.build, "access_inside": acs.build_inside,
               "access_outside": acs.build_outside,
-              "access_prob": ap.build, "access_grids": ag.build}
+              "access_prob": ap.build, "access_grids": ag.build,
+              "fused_expand": fexp.build}
     with cf.ThreadPoolExecutor(len(builds)) as ex:
         futs = {k: ex.submit(timed, fn) for k, fn in builds.items()}
         built = {k: f.result() for k, f in futs.items()}
@@ -961,7 +1054,8 @@ def main() -> int:
                        "access_inside": (acs, "inside_launches"),
                        "access_grids_outside": (ag, "outside_grids_launches"),
                        "access_outside": (acs, "outside_launches"),
-                       "access_prob": (ap, "prob_launches")}
+                       "access_prob": (ap, "prob_launches"),
+                       "access_epilogue": (ap, "epilogue_launches")}
 
     def access_counts() -> dict:
         return {k: getattr(m, a) for k, (m, a) in access_counters.items()}
@@ -969,6 +1063,37 @@ def main() -> int:
     def zero_access_counts() -> None:
         for m, a in access_counters.values():
             setattr(m, a, 0)
+
+    # the fused stage's kernels' launch counters
+    def fused_counts() -> dict:
+        return {"fused_expand": fexp.expand_launches,
+                "fused_threshold": fexp.threshold_launches}
+
+    def zero_fused_counts() -> None:
+        fexp.expand_launches = fexp.threshold_launches = 0
+
+    # calls of the plain versions that the card's kernels replace: none on
+    # a path that runs on the card
+    plain_calls = Counter()
+
+    def recording(module, name: str):
+        fn0 = getattr(module, name)
+
+        def rec(*a, **k):
+            plain_calls[name] += 1
+            return fn0(*a, **k)
+
+        return fn0, rec
+
+    plain_fns = [(m, n, *recording(m, n)) for m, n in (
+        (batched, "make_grids"), (batched, "make_outside_grids"),
+        (batched, "accessibility_from_probabilities"),
+        (fused, "_expand_core"), (fused, "_thresh_core"))]
+
+    def record_plain_calls(on: bool) -> None:
+        plain_calls.clear()
+        for m, n, fn0, rec in plain_fns:
+            setattr(m, n, rec if on else fn0)
 
     # ---- 3. main path at full size -----------------------------------------
     work = REPO / "build" / "chip_smoke"
@@ -993,17 +1118,13 @@ def main() -> int:
     mid0 = pipeline.mid_stage
     fb_submit0 = pipeline.OverflowFallback.submit
     fb_patch0 = pipeline.OverflowFallback.patch
-    # calls of the grids' plain versions (none where the card runs them)
-    plain_grids = Counter()
-    grids0, ogrids0 = batched.make_grids, batched.make_outside_grids
+    # the pair count of every wave (the fused stage's launch plan)
+    wave_pairs = []
+    wb_init0 = fused._WaveBuffers.__init__
 
-    def grids_rec(*a, **k):
-        plain_grids["make_grids"] += 1
-        return grids0(*a, **k)
-
-    def ogrids_rec(*a, **k):
-        plain_grids["make_outside_grids"] += 1
-        return ogrids0(*a, **k)
+    def wb_rec(self, *a, **kw):
+        wb_init0(self, *a, **kw)
+        wave_pairs.append(self.tot)
 
     def run_rec(self, codes, lengths):
         acc_devices.update(str(d) for d in self.devices)
@@ -1060,7 +1181,8 @@ def main() -> int:
     pipeline.mid_stage = mid_rec
     pipeline.OverflowFallback.submit = fb_submit_rec
     pipeline.OverflowFallback.patch = fb_patch_rec
-    batched.make_grids, batched.make_outside_grids = grids_rec, ogrids_rec
+    fused._WaveBuffers.__init__ = wb_rec
+    record_plain_calls(True)
 
     db_gpu, out_gpu = work / "db_gpu", work / "ris_gpu.txt"
     # the main path is the device chain: the router's default, auto, may
@@ -1070,6 +1192,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     gapped_sweep.launches = uop.launches = 0
     zero_access_counts()
+    zero_fused_counts()
     t0 = time.perf_counter()
     cli.main(["db", "-i", str(work / "db.fa"), "-o", str(db_gpu)])
     t_db = time.perf_counter() - t0
@@ -1080,6 +1203,8 @@ def main() -> int:
     t_ris = time.perf_counter() - t0
     launches, ulaunches = gapped_sweep.launches, uop.launches
     alaunches = access_counts()
+    flaunches = fused_counts()
+    plain_main = dict(plain_calls)
     stages = prof.snapshot()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     batched.BatchedRaccess.run = run0
@@ -1091,7 +1216,8 @@ def main() -> int:
     pipeline.mid_stage = mid0
     pipeline.OverflowFallback.submit = fb_submit0
     pipeline.OverflowFallback.patch = fb_patch0
-    batched.make_grids, batched.make_outside_grids = grids0, ogrids0
+    fused._WaveBuffers.__init__ = wb_init0
+    record_plain_calls(False)
 
     check(acc_devices == {"cuda:0"}, f"accessibility ran on {acc_devices}")
     check("ris.fused.ungapped" in stages,
@@ -1104,8 +1230,18 @@ def main() -> int:
               "accessibility batches")
     check(0 < n_db_batches < len(access_batches),
           "db or ris ran no accessibility batch")
-    check(not plain_grids, f"the grids' plain versions ran on the main path: "
-          f"{dict(plain_grids)}")
+    check(not plain_main, f"plain versions ran on the main path: "
+          f"{plain_main}")
+    # one expansion per block of every wave (one card: no shards), one
+    # threshold per block with survivors, as the ungapped kernel
+    main_block = fused.block_cap(dev)
+    fused_plan = sum(-(-n // main_block) for n in wave_pairs)
+    check(flaunches["fused_expand"] == fused_plan,
+          f"the expansion launched {flaunches['fused_expand']} times for "
+          f"{fused_plan} pair blocks of the waves of {wave_pairs} pairs")
+    check(flaunches["fused_threshold"] == ulaunches > 0,
+          f"the threshold launched {flaunches['fused_threshold']} times, "
+          f"the ungapped kernel {ulaunches}")
     gpu_lines = body(out_gpu)
     check(len(gpu_lines) > 100, f"only {len(gpu_lines)} hits")
     for line in gpu_lines:
@@ -1116,12 +1252,15 @@ def main() -> int:
           f"ris {N_Q} queries in {t_ris:.3f}s = {N_Q / t_ris:.4f} q/s; "
           f"{len(gpu_lines)} hits; kernel launches: ungapped {ulaunches}, "
           f"gapped {launches}, "
-          + ", ".join(f"{k} {n}" for k, n in alaunches.items())
+          + ", ".join(f"{k} {n}" for k, n in {**flaunches,
+                                               **alaunches}.items())
           + f" ({n_db_batches} db + {len(access_batches) - n_db_batches} ris "
-          f"batches; plain make_grids / make_outside_grids calls "
-          f"{plain_grids['make_grids']} / "
-          f"{plain_grids['make_outside_grids']}); peak device memory "
-          f"{peak_gb:.2f} GB {tag}",
+          f"batches; {len(wave_pairs)} wave(s) of {wave_pairs} pairs in "
+          f"blocks of {main_block}, {fused_plan} planned); plain versions "
+          f"called on the main path: "
+          + ", ".join(f"{n} {plain_main.get(n, 0)}"
+                      for _m, n, _f, _r in plain_fns)
+          + f"; peak device memory {peak_gb:.2f} GB {tag}",
           flush=True)
     print("[main] stage seconds " + json.dumps(
         {k: round(v, 4) for k, v in sorted(stages.items())}) + f" {tag}",
@@ -1235,8 +1374,92 @@ def main() -> int:
     check(per_pair <= fused.PAIR_BYTES,
           f"a pair block takes {per_pair:.1f} B per pair, more than "
           f"fused.PAIR_BYTES = {fused.PAIR_BYTES}")
+    # the expansion and threshold kernels against their plain versions on
+    # that block, bit for bit, then timed beside their bounds
+    d_acc, max_len = f_p.min_accessible_length, f_p.max_seed_length
+    thr = f_p.interaction_energy_threshold
+    eargs = (d_acc, max_len, 0, block, wb, f_qp, f_dp)
+    hits_k, hits_p = fexp.expand(*eargs), fused._expand_core(*eargs)
+    torch.cuda.synchronize()
+    check(list(hits_k) == list(hits_p), "the expansion's columns differ")
+    for key, a in hits_k.items():
+        b = hits_p[key]
+        check(a.dtype == b.dtype and torch.equal(
+            a.view(torch.int64), b.view(torch.int64)),
+            f"the expansion kernel's {key} differs from _expand_core's")
+    del hits_p
+    n_exp = len(hits_k["pid"])
+    res = uop.ungapped_extend(
+        hits_k["q_sp"], hits_k["db_sp"], hits_k["length"],
+        hits_k["dbseq_start"], hits_k["acc_e"].float(),
+        hits_k["hyb_e"].float(), hits_k["qb"], hits_k["qab"], hits_k["dbb"],
+        hits_k["aoff"], hits_k["coff"], f_qp.bufs, f_dp.bufs, d_acc,
+        f_p.drop_out_length_wo_gap)
+    rec_k = fexp.threshold(f_p, res, hits_k)
+    rec_p = fused._thresh_core(f_p, res, hits_k)
+    check(list(rec_k) == list(rec_p) and all(
+        rec_k[key].dtype == v.dtype and np.array_equal(
+            rec_k[key].view(np.uint8), v.view(np.uint8))
+        for key, v in rec_p.items()),
+        "the threshold's records differ from _thresh_core's")
+    n_thr = len(rec_k["pid"])
+    del rec_p
+    flib, stream = fexp._lib(), torch.cuda.current_stream().cuda_stream
+    ms_exp = cuda_ms(lambda: fexp.expand(*eargs), 5)
+    plain_exp = cuda_ms(lambda: fused._expand_core(*eargs), 2)
+    # the threshold's launches alone (no read, no copy), then the whole
+    # wrapper (the count read and the records' copy to the host)
+    ms_thr = cuda_ms(lambda: fexp.threshold_launch(flib, thr, res, hits_k,
+                                                   stream), 5)
+    ms_thr_all = cuda_ms(lambda: fexp.threshold(f_p, res, hits_k), 5)
+    plain_thr = cuda_ms(lambda: fused._thresh_core(f_p, res, hits_k), 2)
+    thr_cols = (*(res[key] for key in (*uop.INT_KEYS, *uop.FLOAT_KEYS)),
+                hits_k["dbseq_id"], hits_k["pid"])
+
+    def compaction():
+        """The threshold by the library: torch.nonzero and boolean
+        indexing of the same columns."""
+        keep = torch.nonzero(res["energy"].double() <= thr).squeeze(1)
+        return [col[keep] for col in thr_cols]
+
+    lib_thr = cuda_ms(compaction, 5)
+    dev_exp = device_ms_by_kernel(lambda: fexp.expand(*eargs), (
+        "expand_count_kernel", "scan_kernel", "expand_scatter_kernel"))
+    dev_thr = device_ms_by_kernel(
+        lambda: fexp.threshold_launch(flib, thr, res, hits_k, stream),
+        ("thresh_count_kernel", "scan_kernel", "thresh_scatter_kernel"))
+    exp_bound, exp_by, exp_bytes = expand_bound_ms(
+        d_acc, max_len, 0, block, wb, f_qp, f_dp, n_exp)
+    thr_bound, thr_by, thr_bytes = threshold_bound_ms(n_exp, n_thr)
+    print(f"[fused] fused_expand on that block ({block} pairs, {n_exp} "
+          f"survivors, every column bit for bit with _expand_core): "
+          f"{ms_exp:.4f} ms through the wrapper (its one read included), "
+          f"plain {plain_exp:.2f} ms, bound {exp_bound:.6f} ms ({exp_by}, "
+          f"{exp_bytes} bytes), {ms_exp / exp_bound:.1f}x bound; launches "
+          f"by torch.profiler " + (", ".join(
+              f"{k} {v:.4f}" for k, v in dev_exp.items()) or "not measured")
+          + f"; library none {tag}", flush=True)
+    print(f"[fused] fused_threshold on its ungapped output ({n_exp} hits, "
+          f"{n_thr} kept, every record bit for bit with _thresh_core): "
+          f"{ms_thr:.4f} ms for the launches, {ms_thr_all:.4f} ms through "
+          f"the wrapper (the count read and one copy of "
+          f"{fexp.RECORD_BYTES * n_thr} bytes to the host), plain "
+          f"{plain_thr:.2f} ms (with its ten copies), bound "
+          f"{thr_bound:.6f} ms ({thr_by}, {thr_bytes} bytes, the copy not "
+          f"included), {ms_thr / thr_bound:.1f}x bound; library "
+          f"(torch.nonzero and boolean indexing of the same columns) "
+          f"{lib_thr:.4f} ms; launches by torch.profiler " + (", ".join(
+              f"{k} {v:.4f}" for k, v in dev_thr.items()) or "not measured")
+          + f" {tag}", flush=True)
+    fused_rec = {
+        "fused_expand": dict(ms=ms_exp, plain_ms=plain_exp,
+                             bound_ms=exp_bound, bound_by=exp_by, err=0.0,
+                             library_ms=None),
+        "fused_threshold": dict(ms=ms_thr, plain_ms=plain_thr,
+                                bound_ms=thr_bound, bound_by=thr_by, err=0.0,
+                                library_ms=lib_thr)}
     n_pairs = wb.tot
-    del wb
+    del wb, hits_k, res, rec_k, thr_cols
     first_fused.clear()
 
     # ---- 4e. the staged oracle against the fused stage, first queries ---
@@ -1350,6 +1573,7 @@ def main() -> int:
         os.environ["PRIBLAST_DEVICE_EXTEND"] = mode
         gapped_sweep.launches = uop.launches = 0
         zero_access_counts()
+        zero_fused_counts()
         t0 = time.perf_counter()
         cli.main(["ris", "-i", str(work / "q.fa"), "-o", str(out), "-d",
                   str(db_gpu)])
@@ -1372,11 +1596,12 @@ def main() -> int:
     print(f"[host-extend] ris with PRIBLAST_DEVICE_EXTEND=0: {N_Q} queries in "
           f"{t_he:.3f}s = {N_Q / t_he:.4f} q/s; {len(got)} lines, {n_diff} "
           f"differ from the host chain of phase 4a; extension kernel "
-          f"launches: ungapped {uop.launches}, gapped {gapped_sweep.launches} "
-          f"{tag}", flush=True)
+          f"launches: ungapped {uop.launches}, gapped {gapped_sweep.launches}"
+          f", {json.dumps(fused_counts())} {tag}", flush=True)
     check(n_diff == 0, f"host-extend body differs from the host chain on "
           f"{n_diff} lines")
-    check(uop.launches == 0 and gapped_sweep.launches == 0,
+    check(uop.launches == 0 and gapped_sweep.launches == 0
+          and not any(fused_counts().values()),
           "an extension kernel ran with PRIBLAST_DEVICE_EXTEND=0")
     scans_ran("host-extend")
 
@@ -1430,9 +1655,11 @@ def main() -> int:
         check(again == sp["split"], f"wave {wi}: the split differs from "
               "split_wave on the printed pairs and rates")
     check((uop.launches > 0) == any_dev and (gapped_sweep.launches > 0)
-          == any_dev, f"extension kernels launched (ungapped {uop.launches}, "
-          f"gapped {gapped_sweep.launches}) but the device side had "
-          f"{'some' if any_dev else 'no'} queries")
+          == any_dev and all((n > 0) == any_dev
+                             for n in fused_counts().values()),
+          f"extension kernels launched (ungapped {uop.launches}, "
+          f"gapped {gapped_sweep.launches}, {json.dumps(fused_counts())}) "
+          f"but the device side had {'some' if any_dev else 'no'} queries")
     scans_ran("hybrid")
     frac, matched, de = compare_lines(gpu_lines, body(out_hyb))
     print(f"[hybrid] ris {N_Q} queries in {t_hy:.3f}s = {N_Q / t_hy:.4f} q/s "
@@ -1536,7 +1763,8 @@ def main() -> int:
           f"ris {json.dumps(c_ris)}", flush=True)
     for step, counts, names in (
             ("db", c_db, tuple(access_counters)),
-            ("ris", c_ris, (*access_counters, "ungapped_extend",
+            ("ris", c_ris, (*access_counters, "fused_expand",
+                            "fused_threshold", "ungapped_extend",
                             "gapped_extend"))):
         for i, c in enumerate(counts):
             check(all(c[k] > 0 for k in names), f"two-process {step}: "
@@ -1555,7 +1783,6 @@ def main() -> int:
     # the plan's inputs: each accessibility batch's rows, each wave's
     # pairs, each gapped stage's hits
     sizes = {"rows": [], "pairs": [], "hits": []}
-    wb_init0 = fused._WaveBuffers.__init__
 
     def rows_rec(self, codes, lengths):
         sizes["rows"].append(codes.shape[0])
@@ -1574,6 +1801,8 @@ def main() -> int:
     pipeline.gapped_stage = hits_rec
     gapped_sweep.launches = uop.launches = 0
     zero_access_counts()
+    zero_fused_counts()
+    record_plain_calls(True)
     try:
         t0 = time.perf_counter()
         db_model.run(DbParams(input=str(work / "db.fa"),
@@ -1588,7 +1817,9 @@ def main() -> int:
         batched.BatchedRaccess.run = run0
         fused._WaveBuffers.__init__ = wb_init0
         pipeline.gapped_stage = gstage0
-    got_launches = {**access_counts(),
+        plain_md = dict(plain_calls)
+        record_plain_calls(False)
+    got_launches = {**access_counts(), **fused_counts(),
                     "ungapped_extend": uop.launches,
                     "gapped_extend": gapped_sweep.launches}
 
@@ -1599,10 +1830,11 @@ def main() -> int:
     block = min(fused.block_cap(d) for d in dist.distinct(devs))
     gcap = pipeline.gapped_cap(devs)
     n_access = sum(parts(b) for b in sizes["rows"])
+    n_blocks = sum(parts(min(block, n - o)) for n in sizes["pairs"]
+                   for o in range(0, n, block))
     plan = {**dict.fromkeys(access_counters, n_access),
-            "ungapped_extend": sum(parts(min(block, n - o))
-                                   for n in sizes["pairs"]
-                                   for o in range(0, n, block)),
+            **dict.fromkeys(("fused_expand", "fused_threshold",
+                             "ungapped_extend"), n_blocks),
             "gapped_extend": sum(2 * parts(min(gcap, n - o))
                                  for n in sizes["hits"]
                                  for o in range(0, n, gcap))}
@@ -1626,12 +1858,14 @@ def main() -> int:
           f"{len(sizes['rows'])} accessibility batches of "
           f"{sizes['rows']} rows, of the pair blocks of {block} of "
           f"{sizes['pairs']} pairs, and two per non-empty shard of the hit "
-          f"batches of {gcap} of {sizes['hits']} hits)", flush=True)
+          f"batches of {gcap} of {sizes['hits']} hits); plain versions "
+          f"called {json.dumps(plain_md)}", flush=True)
     check(all(v == 0 for v in diffs.values()),
           f"db files on {k} shards differ from one device's: {diffs}")
     check(n_diff == 0, f"ris body on {k} shards differs on {n_diff} lines")
     check(got_launches == plan, f"kernel launches on {k} shards "
           f"{got_launches} differ from the plan {plan}")
+    check(not plain_md, f"plain versions ran on {k} shards: {plain_md}")
     for label, ddevs in (("2 shards on cuda:0", [devs[0]] * 2),
                          ("4 shards on cuda:0", [devs[0]] * 4),
                          ("cuda:0 and the CPU", [devs[0],
@@ -1895,6 +2129,35 @@ def main() -> int:
                                                          n_max, kT), e_p)
             check(all(bool(torch.isfinite(x).all()) for x in pw_k),
                   f"non-finite probability kernel output ({label})")
+            # the epilogue kernel on the probability kernel's output, as
+            # the main path calls it (lengths checked), against its plain
+            # version: bit for bit
+            ep_args = (*pw_k, lens, d, n_max, kT)
+            ep_k = ap.accessibility(*ep_args, checked=True)
+            ep_p = torch.stack(
+                batched.accessibility_from_probabilities(*ep_args))
+            torch.cuda.synchronize()
+            check(torch.equal(ep_k.view(torch.int32), ep_p.view(torch.int32)),
+                  f"the epilogue kernel differs from its plain version by "
+                  f"{float((ep_k - ep_p).abs().max())} kcal/mol ({label})")
+            ms_ep = cuda_ms(lambda: ap.accessibility(*ep_args, checked=True),
+                            20)
+            plain_ep = cuda_ms(
+                lambda: batched.accessibility_from_probabilities(*ep_args),
+                20)
+            dev_ep = device_ms_by_kernel(
+                lambda: ap.accessibility(*ep_args, checked=True),
+                ("epilogue_kernel",))
+            # PyTorch's division of a tensor by a host scalar on the card,
+            # which the kernel follows: a product with the scalar's float32
+            # reciprocal, where an IEEE division would differ
+            e_raw = -torch.log(pw_k[0].clamp(min=1.2e-38)) * float(
+                np.float32(kT))
+            by_scalar = e_raw / 1000
+            recip_same = torch.equal(by_scalar, e_raw * torch.tensor(
+                1.0 / 1000.0, dtype=torch.float32, device=dev))
+            ieee_differ = int((by_scalar != e_raw / torch.full_like(
+                e_raw, 1000.0)).sum())
             check(rel_prob <= PLANE_RTOL and de_prob <= ACCESS_TOL
                   and de_three <= ACCESS_TOL,
                   f"probability kernel differs by {rel_prob} relative, "
@@ -1950,6 +2213,24 @@ def main() -> int:
         recs["access_prob"] = dict(ms=ms_prob, plain_ms=plain_prob,
                                    bound_ms=bound, bound_by=bound_by,
                                    err=de_prob)
+        bound, bound_by = epilogue_bound_ms(B, n_max, 4)
+        print(f"[kernel] access_epilogue {label} float32 B={B} columns="
+              f"{n_max} w={d}: {ms_ep:.4f} ms through the wrapper as the "
+              f"main path calls it, the launch alone "
+              + (f"{dev_ep['epilogue_kernel']:.4f} ms by torch.profiler"
+                 if "epilogue_kernel" in dev_ep else
+                 f"not measured (the profiler saw {json.dumps(dev_ep)})")
+              + f"; plain {plain_ep:.4f} ms, bound {bound:.6f} ms "
+              f"({bound_by}), {ms_ep / bound:.1f}x bound; acc and cond bit "
+              f"for bit; x / 1000 by PyTorch on the card equals x * "
+              f"float32(1/1000) on all {by_scalar.numel()} values: "
+              f"{recip_same}, an IEEE division differs on {ieee_differ}; "
+              f"library none {tag}", flush=True)
+        check(recip_same, "PyTorch's division by a host scalar is not the "
+              "product with its float32 reciprocal on this card")
+        recs["access_epilogue"] = dict(ms=ms_ep, plain_ms=plain_ep,
+                                       bound_ms=bound, bound_by=bound_by,
+                                       err=0.0)
         for name, ms, ms_rc, plain, err, inside in (
                 ("access_grids_inside", ms_gi, ms_gi_rc, plain_gi, err_gi,
                  True),
@@ -2011,6 +2292,7 @@ def main() -> int:
         s = torch.as_tensor(s_np, device=dev)
         lens = torch.as_tensor(lengths.astype(np.int64), device=dev)
         t = batched.make_tables(w, dt, dev)
+        kT = float(batched._linmodel(w).sp.kT)
         before = access_counts()
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -2018,22 +2300,25 @@ def main() -> int:
             with torch.no_grad():
                 got = batched.window_probabilities(w, d, n_max, dt, s, lens,
                                                    t, checked=True)
+                got = (*got, ap.accessibility(*got, lens, d, n_max, kT,
+                                              checked=True))
         finally:
             torch.cuda.set_sync_debug_mode("default")
         ran = {k: n - before[k] for k, n in access_counts().items()}
         with torch.no_grad():
             ref = batched.window_probabilities(w, d, n_max, dt, s, lens, t)
+            ref = (*ref, ap.accessibility(*ref, lens, d, n_max, kT))
         same = all(torch.equal(a, b) for a, b in zip(got, ref))
         check(all(n == 1 for n in ran.values()),
               f"[nosync] {label}: accessibility launches {ran}, not one each")
-        check(same, f"[nosync] {label}: p_w, p_w1 differ from the call that "
-              "checks the lengths itself")
+        check(same, f"[nosync] {label}: p_w, p_w1 or the energies differ "
+              "from the calls that check the lengths themselves")
         print(f"[nosync] {label} B={B} columns={n_max + 1}: "
-              "window_probabilities (checked lengths) under "
-              "torch.cuda.set_sync_debug_mode('error'), no synchronising "
-              f"call; launches {json.dumps(ran)}; p_w, p_w1 bit for bit "
-              f"with the call that checks the lengths itself {tag}",
-              flush=True)
+              "window_probabilities and the epilogue (checked lengths) "
+              "under torch.cuda.set_sync_debug_mode('error'), no "
+              f"synchronising call; launches {json.dumps(ran)}; p_w, p_w1 "
+              f"and the energies bit for bit with the calls that check the "
+              f"lengths themselves {tag}", flush=True)
 
     nosync("main-path db batch", *access_batches[0])
     nosync("main-path ris batch", *access_batches[n_db_batches])
@@ -2067,7 +2352,9 @@ def main() -> int:
             ("access_outside", "access_outside",
              "priblast_tpu/accessibility/batched.py:926"),
             ("access_prob", "access_prob",
-             "priblast_tpu/accessibility/batched.py:1111,1175")):
+             "priblast_tpu/accessibility/batched.py:1111,1175"),
+            ("access_epilogue", "access_prob",
+             "priblast_tpu/accessibility/batched.py:1370")):
         rec = db_rec[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -2077,6 +2364,18 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": None,
+        })
+    for name, replaces in (
+            ("fused_expand", "priblast_tpu/search/fused.py:102"),
+            ("fused_threshold", "priblast_tpu/search/fused.py:245")):
+        rec = fused_rec[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "priblast_tpu_torch/csrc/fused_expand.cu",
+            "replaces": replaces, "launches": flaunches[name],
+            "max_abs_err": rec["err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

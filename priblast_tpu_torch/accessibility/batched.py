@@ -1066,12 +1066,17 @@ class BatchedRaccess:
                 np.concatenate([c for _, c in parts]))
 
     def _run_rows(self, dev, s: np.ndarray, lens: np.ndarray, n_max: int):
+        # imported here: the ops modules import this module
+        from priblast_tpu_torch.ops import access_prob
+
         s = torch.as_tensor(s, device=dev)
         lens = torch.as_tensor(lens, device=dev)
         with torch.no_grad():
             p_w, p_w1 = window_probabilities(self.w, self.d, n_max,
                                              self.dtype, s, lens,
                                              self._tables[dev], checked=True)
-            acc, cond = accessibility_from_probabilities(
-                p_w, p_w1, lens, self.d, n_max, self.kT)
-        return acc.cpu().numpy(), cond.cpu().numpy()
+            # acc and cond as one [2, B, n_max] tensor: one copy back
+            out = access_prob.accessibility(p_w, p_w1, lens, self.d, n_max,
+                                            self.kT, checked=True)
+        out = out.cpu().numpy()
+        return out[0], out[1]

@@ -84,11 +84,17 @@
 // and the int11 / int21 / int22 / stack tables (read through L1), so the
 // kernel never reads a weight grid.
 //
-// C entry points (ctypes): access_prob_f32, access_prob_f64. They launch
-// on the given stream and return cudaGetLastError().
+// A third kernel, epilogue_kernel (C below), turns p_w and p_w1 into the
+// window energies behind its own entry points.
+//
+// C entry points (ctypes): access_prob_f32, access_prob_f64 (the two
+// launches above), access_epilogue_f32, access_epilogue_f64 (the
+// epilogue). They launch on the given stream and return
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include <cfloat>
 #include <cmath>
 #include <cstdint>
 
@@ -99,6 +105,7 @@ constexpr int kKS = 32;          // row stride of the K tables in shared memory
 constexpr int kMaxThreads = 1024;
 constexpr int kWindowMaxThreads = 256;  // threads per CTA of window_kernel
 constexpr int kSumThreads = 256;  // threads per block of sum_kernel
+constexpr int kEpilogueThreads = 256;  // threads per block of epilogue_kernel
 
 template <typename T>
 struct Params {
@@ -662,6 +669,61 @@ __global__ void __launch_bounds__(kMaxThreads) sum_kernel(const Params<T> p) {
   p.p_w1[x * B + b] = pw1;
 }
 
+// C. epilogue_kernel: the window energies from p_w and p_w1, as
+// accessibility/batched.py:accessibility_from_probabilities computes them
+// (the JAX package's priblast_tpu/accessibility/batched.py:1370-1390, the
+// end of _run_batch_impl): a thread per output element (b, j), j fastest,
+// so that the writes of a row coalesce. For the window start x = j + 1:
+// acc[b][j] = -kT log p_w[x] / 1000 where x + w - 1 <= n_b, else 0; the
+// conditional -kT log p_w1[x] / 1000 - acc where x + w <= n_b, else 0,
+// goes to cond[b][j + w] (the plain version's column shift, without a
+// copy), and cond[b][j] = 0 for j < w. Each log is logf of
+// (float)max(p, FLT_MIN), the libdevice function that torch.log calls on
+// the card for float32; the products in float32 as the plain version
+// orders them. Its division by 1000 is, on the card, PyTorch's division
+// of a tensor by a host scalar: a product with the scalar's float32
+// reciprocal (chip_smoke.py [kernel] checks that the two agree on the card,
+// and counts the values where an IEEE division differs), so the kernel
+// multiplies by the same reciprocal and matches the plain version bit for
+// bit there; on the CPU, where PyTorch divides, within an ulp. Bound:
+// bytes (two reads and two writes per element).
+constexpr float kInv1000 = 1.0f / 1000.0f;  // rounded as PyTorch rounds it
+
+template <typename T>
+struct EpilogueParams {
+  const T *p_w, *p_w1;     // [N+2][B]
+  const int64_t *lengths;  // [B]
+  float *acc, *cond;       // [B][N] each
+  long long B, N;
+  int w;
+  float kT;
+};
+
+// torch.log(torch.clamp(p, min=FLT_MIN).to(float32)); a NaN stays NaN
+template <typename T>
+__device__ __forceinline__ float log_clamped(T p) {
+  const T tiny = T(FLT_MIN);
+  return logf((float)(p < tiny ? tiny : p));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kEpilogueThreads)
+    epilogue_kernel(EpilogueParams<T> p) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= p.B * p.N) return;
+  const long long b = e / p.N, j = e - b * p.N, x = j + 1;
+  const long long n = p.lengths[b];
+  float a = 0.0f, c = 0.0f;
+  if (x + p.w - 1 <= n)
+    a = (-log_clamped(p.p_w[x * p.B + b]) * p.kT) * kInv1000;
+  if (x + p.w <= n)
+    c = (-log_clamped(p.p_w1[x * p.B + b]) * p.kT) * kInv1000 - a;
+  const long long row = b * p.N;
+  p.acc[row + j] = a;
+  if (j + p.w < p.N) p.cond[row + j + p.w] = c;
+  if (j < p.w) p.cond[row + j] = 0.0f;
+}
+
 // one launch of `kern`; the only launch site of this file
 template <typename P>
 int run(void (*kern)(P), long long grid, int threads, size_t bytes,
@@ -751,6 +813,29 @@ int launch(void *const *ptrs, const long long *sizes, const double *scalars,
              kSumThreads, 0, stream, p);
 }
 
+// ptrs: p_w, p_w1 (T, [N+2][B]), lengths (int64, [B]), acc, cond (float32,
+//   [B][N] each) (5 device pointers);
+// sizes: B, N, w;
+// scalars: kT (a float32 value).
+template <typename T>
+int epilogue(void *const *ptrs, const long long *sizes, const double *scalars,
+             void *stream) {
+  EpilogueParams<T> p;
+  p.p_w = (const T *)ptrs[0];
+  p.p_w1 = (const T *)ptrs[1];
+  p.lengths = (const int64_t *)ptrs[2];
+  p.acc = (float *)ptrs[3];
+  p.cond = (float *)ptrs[4];
+  p.B = sizes[0];
+  p.N = sizes[1];
+  p.w = (int)sizes[2];
+  p.kT = (float)scalars[0];
+  if (p.B == 0 || p.N == 0) return 0;
+  if (p.B < 0 || p.N < 0 || sizes[2] < 1) return (int)cudaErrorInvalidValue;
+  return run(epilogue_kernel<T>, ceil_div(p.B * p.N, kEpilogueThreads),
+             kEpilogueThreads, 0, stream, p);
+}
+
 }  // namespace
 
 #ifdef ACCESS_STAMPS
@@ -777,4 +862,14 @@ extern "C" int access_prob_f32(void *const *ptrs, const long long *sizes,
 extern "C" int access_prob_f64(void *const *ptrs, const long long *sizes,
                                const double *scalars, void *stream) {
   return launch<double>(ptrs, sizes, scalars, stream);
+}
+
+extern "C" int access_epilogue_f32(void *const *ptrs, const long long *sizes,
+                                   const double *scalars, void *stream) {
+  return epilogue<float>(ptrs, sizes, scalars, stream);
+}
+
+extern "C" int access_epilogue_f64(void *const *ptrs, const long long *sizes,
+                                   const double *scalars, void *stream) {
+  return epilogue<double>(ptrs, sizes, scalars, stream);
 }

@@ -64,7 +64,10 @@ def device_extend_mode() -> str:
 # candidate pair is one of the products of a seed candidate's two
 # suffix-array interval sizes:
 # - HOST_PAIR_RATE: pairs / (host chain wall x its 8 threads), per thread;
-# - DEV_PAIR_RATE: pairs / (ris.seed + ris.fused) of the device chain;
+# - DEV_PAIR_RATE: pairs / (ris.seed + ris.fused) of the device chain
+#   (measured again once the fused stage's expansion and threshold became
+#   kernels, from a tree that differed from this one in it alone; the
+#   other four are older);
 # - HIT_DENSITY: hits after the mid stage / pairs;
 # - DEV_HIT_RATE: hits after the mid stage / (ris.mid + ris.gapped +
 #   ris.finish);
@@ -73,7 +76,7 @@ def device_extend_mode() -> str:
 # Each may be set from the environment (PRIBLAST_<NAME>); the hybrid split
 # recalibrates both sides' rates from their walls after every wave.
 HOST_PAIR_RATE = float(os.environ.get("PRIBLAST_HOST_PAIR_RATE", 2.011e5))
-DEV_PAIR_RATE = float(os.environ.get("PRIBLAST_DEV_PAIR_RATE", 2.646e7))
+DEV_PAIR_RATE = float(os.environ.get("PRIBLAST_DEV_PAIR_RATE", 2.915e7))
 DEV_HIT_RATE = float(os.environ.get("PRIBLAST_DEV_HIT_RATE", 5.845e5))
 HIT_DENSITY = float(os.environ.get("PRIBLAST_HIT_DENSITY", 0.09855))
 DEV_DISPATCH_S = float(os.environ.get("PRIBLAST_DEV_DISPATCH_S", 0.0614))

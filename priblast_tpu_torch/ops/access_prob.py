@@ -12,6 +12,14 @@ probability_pass (:1175).
 On CUDA tensors it launches the kernel (a failed build or launch raises);
 on CPU tensors it calls scan_probabilities, its plain version, which the
 kernel matches up to the order of some of its sums.
+
+`accessibility` computes accessibility/batched.py:
+accessibility_from_probabilities, the window energies -kT log p / 1000
+(acc and cond, float32) from p_w and p_w1, with a third kernel of the same
+source (the JAX package's priblast_tpu/accessibility/batched.py:1370-1390,
+the end of _run_batch_impl): one [2, B, N] float32 tensor on CUDA, with
+the same bits as its plain version there; on CPU tensors the plain
+version's acc and cond stacked.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ THREADS = 128
 TILE = {torch.float32: 32, torch.float64: 16}
 
 prob_launches = 0  # kernel launches by window_probs(); plain calls not counted
+epilogue_launches = 0  # the same for accessibility()
 
 
 def build() -> Path:
@@ -46,16 +55,17 @@ def build() -> Path:
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    for dt in ("f32", "f64"):
-        fn = getattr(lib, f"access_prob_{dt}")
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4
+    for name in ("access_prob", "access_epilogue"):
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"{name}_{dt}")
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 4
     return lib
 
 
-def _fn(dtype):
-    return getattr(_lib(), "access_prob_f64" if dtype == torch.float64
-                   else "access_prob_f32")
+def _fn(dtype, name: str = "access_prob"):
+    return getattr(_lib(), f"{name}_f64" if dtype == torch.float64
+                   else f"{name}_f32")
 
 
 @functools.lru_cache(maxsize=16)
@@ -177,3 +187,53 @@ def _prob_call(fn, g, s_padded, lengths, w: int, n_max: int, band: int,
         raise RuntimeError(f"access_prob kernel launch failed: CUDA error "
                            f"{err}")
     return p[0], p[1]
+
+
+def accessibility(p_w, p_w1, lengths, w: int, n_max: int, kT: float, *,
+                  checked: bool = False):
+    """The window energies of accessibility_from_probabilities, as one
+    [2, B, n_max] float32 tensor (acc, then cond): p_w and p_w1 [n_max + 2,
+    B] float32 or float64, contiguous; lengths [B] int64 in [0, n_max]
+    (`checked`: the caller has checked their range on the host, so none is
+    read from the device); w the least accessible length. The kernel for
+    CUDA tensors, accessibility_from_probabilities for CPU tensors."""
+    dev = p_w.device
+    B = p_w.shape[1] if p_w.dim() == 2 else 0
+    if p_w.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"p_w has dtype {p_w.dtype}, expected float32 or "
+                         "float64")
+    for name, x in (("p_w", p_w), ("p_w1", p_w1)):
+        nvcc.check_tensor(x, name, (n_max + 2, B), p_w.dtype, dev)
+    access_scan._check_lengths(lengths, n_max, B, dev, checked)
+    if w < 1:
+        raise ValueError(f"the window size must be at least 1, not {w}")
+    if dev.type == "cpu":
+        return torch.stack(ab.accessibility_from_probabilities(
+            p_w, p_w1, lengths, w, n_max, kT))
+    if dev.type != "cuda":
+        raise ValueError(f"accessibility runs on cuda or cpu, not {dev}")
+    with torch.cuda.device(dev):
+        out = _epilogue_call(_fn(p_w.dtype, "access_epilogue"), p_w, p_w1,
+                             lengths, w, n_max, kT,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    # an empty batch launches nothing
+    nvcc.add_launches(globals(), "epilogue_launches", int(B * n_max > 0))
+    return out
+
+
+def _epilogue_call(fn, p_w, p_w1, lengths, w: int, n_max: int, kT: float,
+                   stream):
+    """Allocate the output and call an epilogue entry point of
+    csrc/access_prob.cu (`fn`) on checked arguments on `stream`."""
+    B = p_w.shape[1]
+    out = torch.empty((2, B, n_max), dtype=torch.float32, device=p_w.device)
+    ptrs = (p_w.data_ptr(), p_w1.data_ptr(), lengths.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr())
+    sizes = (B, n_max, w)
+    err = fn((ctypes.c_void_p * len(ptrs))(*ptrs),
+             (ctypes.c_longlong * len(sizes))(*sizes),
+             (ctypes.c_double * 1)(float(np.float32(kT))), stream)
+    if err != 0:
+        raise RuntimeError(f"access_epilogue kernel launch failed: CUDA "
+                           f"error {err}")
+    return out

@@ -8,15 +8,17 @@ device, one pass per block of candidate pairs:
   host   : seed DFS candidates (search/seed.py; reference
            src/seed_search.cpp:153-230), per CANDIDATE (an SA interval
            pair), shipped once per wave (_WaveBuffers)
-  device : _expand_core: pair generation (searchsorted over the candidate
+  device : the expansion (ops/fused_expand.py:expand; its plain version
+           _expand_core): pair generation (a search over the candidate
            pair-count prefix), suffix-array and position-map reads, window
            accessibility and the interaction filter (reference
            CalcInteractionEnergy, src/seed_search.cpp:47-151), compaction;
            the ungapped extension kernel (ops/ungapped_extend.py) on the
-           survivors; _thresh_core: the interaction-energy threshold
+           survivors; the threshold (ops/fused_expand.py:threshold; its
+           plain version _thresh_core): the interaction-energy threshold
            (reference: src/rna_interaction_search.cpp:389-391) and
-           compaction
-  host   : reads back only the surviving hits
+           compaction into one packed buffer
+  host   : reads back only the surviving hits, in one copy
 
 Pairs are numbered candidate-major, db position outer, query position
 inner (reference: src/seed_search.cpp:274-301); every compaction keeps
@@ -41,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from priblast_tpu_torch.ops import fused_expand as fexp
 from priblast_tpu_torch.ops import ungapped_extend as uop
 from priblast_tpu_torch.parallel import dist
 from priblast_tpu_torch.search import pipeline as pl
@@ -56,13 +59,14 @@ _R_DBB = 5    # chunk sequence base
 _R_NQ = 6     # query-interval width (the inner pair dimension)
 _ROWS = 7
 
-# device bytes per pair of a block at its peak, the compaction at the end
-# of _expand_core: 14 live int64 / float64 pair columns, the candidate rows
-# gathered per pair (56) and the filter mask, 169 B, plus 112 B per
-# survivor (13 compacted columns, the index); 281 B if every pair passes.
-# chip_smoke.py reads it on the main path's first block and fails above
-# this (H100: 262.7 B; 84% of that wave's pairs pass).
-PAIR_BYTES = 288
+# device bytes per pair of a block at its peak, the threshold: per survivor
+# of the filter its 13 int64 / float64 columns (104 B), the ungapped
+# kernel's output (44 B) and the threshold's packed buffer, sized for every
+# survivor (44 B): 192 B if every pair passes (the kept flags, 1 B per
+# pair, are freed by then). chip_smoke.py reads it on the main path's first
+# block and fails above this (H100: 162.4 B; 84.6% of that wave's pairs
+# pass).
+PAIR_BYTES = 200
 
 
 class _WaveBuffers(pl.OnDevices):
@@ -178,13 +182,14 @@ def block_cap(device) -> int:
 
 def run_block(p, o: int, B: int, wb: _WaveBuffers, qpack, dbpack,
               device) -> dict:
-    """Pairs o .. o + B - 1 of the wave through expansion, the ungapped
-    kernel and the threshold on `device`, from its copies of the packs and
-    candidates: `_thresh_core`'s host columns."""
+    """Pairs o .. o + B - 1 of the wave through the expansion, the
+    ungapped and the threshold kernels on `device` (their plain versions
+    on the CPU), from its copies of the packs and candidates:
+    `_thresh_core`'s host columns."""
     d = p.min_accessible_length
     wb, qpack, dbpack = wb.at(device), qpack.at(device), dbpack.at(device)
     with prof.stage("ris.fused.expand", device):
-        hits = _expand_core(d, p.max_seed_length, o, B, wb, qpack, dbpack)
+        hits = fexp.expand(d, p.max_seed_length, o, B, wb, qpack, dbpack)
     with prof.stage("ris.fused.ungapped", device):
         res = uop.ungapped_extend(
             hits["q_sp"], hits["db_sp"], hits["length"], hits["dbseq_start"],
@@ -192,7 +197,7 @@ def run_block(p, o: int, B: int, wb: _WaveBuffers, qpack, dbpack,
             hits["qab"], hits["dbb"], hits["aoff"], hits["coff"],
             qpack.bufs, dbpack.bufs, d, p.drop_out_length_wo_gap)
     with prof.stage("ris.fused.threshold", device):
-        return _thresh_core(p, res, hits)
+        return fexp.threshold(p, res, hits)
 
 
 def fused_stage(p, cands, qpack, dbpack, *, devices,

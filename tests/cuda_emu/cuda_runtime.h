@@ -126,6 +126,7 @@ template <class T> T __shfl_xor_sync(unsigned, T v, int off) {
   return r;
 }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 template <class T> T __ldg(const T *p) { return *p; }
 inline float __int_as_float(int x) {
   float f;

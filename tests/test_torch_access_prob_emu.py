@@ -32,6 +32,7 @@ machine without a card; the card's comparison is tests/test_torch_gpu.py
 and chip_smoke.py.
 """
 
+import ctypes
 import functools
 from pathlib import Path
 
@@ -200,3 +201,145 @@ def test_prob_lanes_counts_every_term_once():
     default = chip_smoke.prob_lanes(BAND, 5, ab.ML)
     assert default["one_per_u"] == 17667 / (32 * 1417)
     assert default["efficiency"] > default["one_per_u"]
+
+
+# ---------------------------------------------------------------------------
+# the epilogue kernel (csrc/access_prob.cu: epilogue_kernel, entry points
+# access_epilogue_f32 / _f64) against accessibility_from_probabilities.
+# Tolerance: the host's logf (glibc) and PyTorch's CPU log may differ by
+# an ulp, and the kernel multiplies by the float32 reciprocal of 1000 where
+# PyTorch's CPU divides (on the card PyTorch multiplies by it too), so each
+# window energy may differ by 2 float32 ulps of its own magnitude (1 seen):
+# acc by 2 ulps of |acc|, cond (the difference of the two energies at its
+# window) by 2 ulps of each; where the plain version writes a zero, the
+# kernel writes the same zero, sign included. On the card both call the
+# same libdevice logf and agree bit for bit (tests/test_torch_gpu.py,
+# chip_smoke.py [kernel]).
+# ---------------------------------------------------------------------------
+
+
+def _epilogue_fn(lib, dtype):
+    fn = getattr(lib, "access_epilogue_f64" if dtype == torch.float64
+                 else "access_epilogue_f32")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4
+    return fn
+
+
+def _assert_epilogue(got, ref, w):
+    """got and ref [2, B, N] float32: within the tolerance above."""
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    g, r = got.numpy().astype(np.float64), ref.numpy()
+    acc, cond = r[0].astype(np.float64), r[1].astype(np.float64)
+    tol_acc = 2 * np.spacing(np.abs(r[0]))
+    # cond[b, y] = e_w1 - e_w at window start x = y - w + 1 (y >= w), with
+    # e_w = acc[b, y - w]
+    e_w = np.zeros_like(cond)
+    e_w[:, w:] = acc[:, : max(acc.shape[1] - w, 0)]
+    e_w1 = (cond + e_w).astype(np.float32)
+    tol_cond = 2 * (np.spacing(np.abs(e_w1))
+                    + np.spacing(np.abs(e_w.astype(np.float32))))
+    assert np.all(np.abs(g[0] - acc) <= tol_acc)
+    assert np.all(np.abs(g[1] - cond) <= tol_cond)
+    zero = r == 0
+    assert np.array_equal(got.numpy()[zero].view(np.uint32),
+                          r[zero].view(np.uint32))
+    assert np.array_equal(got.numpy() == 0, zero)
+
+
+@pytest.mark.parametrize("w", [5, 2, 20])
+@pytest.mark.parametrize("short", [False, True])
+def test_epilogue_source_matches_plain_version(emu_lib, planes, w, short):
+    """The window energies from the plain probabilities of the ragged batch
+    (float64 and float32 p): acc and cond within the tolerance above, the
+    zeros identical; with `short`, rows cut to 3 nt (shorter than w) and 0
+    nt (a padding row)."""
+    dtype, t, g, s, lens, n_max, ins, outs = planes
+    p_w, p_w1 = ab.scan_probabilities(t, g, s, lens, 5, n_max, BAND, dtype,
+                                      ins, outs)
+    if short:
+        lens = lens.clone()
+        lens[1], lens[3] = 3, 0
+    kT = ab._linmodel(W_SPAN).sp.kT
+    ref = torch.stack(ab.accessibility_from_probabilities(p_w, p_w1, lens, w,
+                                                          n_max, kT))
+    got = ap._epilogue_call(_epilogue_fn(emu_lib, dtype), p_w, p_w1, lens, w,
+                            n_max, kT, 0)
+    assert float(ref.abs().max()) > 0
+    _assert_epilogue(got, ref, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_epilogue_source_at_extreme_probabilities(emu_lib, dtype):
+    """p at 0, -0, negative, denormal (in float32; in float64 also below
+    float32's smallest normal and float64's denormals), at and just above
+    FLT_MIN, at 1 (an energy of -0) and above 1, in every window of two
+    rows of 40 and 23 nt: the clamp at FLT_MIN, the cast and the log as the
+    plain version's."""
+    f32min = float(np.finfo(np.float32).tiny)
+    vals = [0.0, -0.0, -1.0, 1e-45, 1e-40, 5e-39, f32min,
+            float(np.nextafter(np.float32(f32min), np.float32(1))), 1e-20,
+            0.5, 1.0, 2.0, 3.0e-3]
+    if dtype == torch.float64:
+        vals += [5e-324, 1e-300, 1e-39]
+    n_max, B = 40, 2
+    rng = np.random.default_rng(7)
+    p = rng.choice(np.asarray(vals), size=(2, n_max + 2, B))
+    p_w, p_w1 = (torch.as_tensor(x, dtype=dtype).contiguous() for x in p)
+    lens = torch.tensor([40, 23], dtype=torch.int64)
+    kT = ab._linmodel(W_SPAN).sp.kT
+    for w in (5, 2):
+        ref = torch.stack(ab.accessibility_from_probabilities(
+            p_w, p_w1, lens, w, n_max, kT))
+        got = ap._epilogue_call(_epilogue_fn(emu_lib, dtype), p_w, p_w1,
+                                lens, w, n_max, kT, 0)
+        assert bool(torch.isfinite(ref).all())
+        _assert_epilogue(got, ref, w)
+        assert bool((torch.signbit(got) == torch.signbit(ref)).all())
+
+
+def _epilogue_inputs():
+    n_max, B = 30, 3
+    rng = np.random.default_rng(0)
+    p_w, p_w1 = (torch.as_tensor(rng.random((n_max + 2, B)),
+                                 dtype=torch.float32) for _ in range(2))
+    lens = torch.tensor([30, 12, 0], dtype=torch.int64)
+    return [p_w, p_w1, lens, 5, n_max, 616.0]
+
+
+@pytest.mark.parametrize("bad", ["dtype", "p_w1_dtype", "shape", "contiguous",
+                                 "lengths_dtype", "lengths", "w", "device"])
+def test_epilogue_wrapper_rejects_bad_inputs(monkeypatch, bad):
+    """accessibility raises ValueError before it dispatches (the plain
+    version is never called) on p of another dtype (float16, or p_w1 not
+    p_w's), shape or layout, lengths not int64 or past n_max, w < 1 or a
+    tensor on another device; on good CPU inputs it returns the plain
+    version's acc and cond stacked."""
+    args = _epilogue_inputs()
+    got = ap.accessibility(*args)
+    ref = ab.accessibility_from_probabilities(*args)
+    assert got.shape == (2, 3, 30)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    if bad == "dtype":
+        args[0], args[1] = args[0].half(), args[1].half()
+    elif bad == "p_w1_dtype":
+        args[1] = args[1].double()
+    elif bad == "shape":
+        args[1] = args[1][:-1]
+    elif bad == "contiguous":
+        args[0] = args[0].t().contiguous().t()
+    elif bad == "lengths_dtype":
+        args[2] = args[2].int()
+    elif bad == "lengths":
+        args[2] = args[2] + 5
+    elif bad == "w":
+        args[3] = 0
+    else:
+        args[2] = args[2].to("meta")
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the plain version ran on refused inputs")
+
+    monkeypatch.setattr(ab, "accessibility_from_probabilities", refuse)
+    with pytest.raises(ValueError):
+        ap.accessibility(*args)

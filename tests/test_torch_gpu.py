@@ -21,9 +21,11 @@ from priblast_tpu_torch.models import db as tdb
 from priblast_tpu_torch.ops import access_grids as ag
 from priblast_tpu_torch.ops import access_prob as ap
 from priblast_tpu_torch.ops import access_scan as acs
+from priblast_tpu_torch.ops import fused_expand as fe
 from priblast_tpu_torch.ops import gapped_sweep as sweep_op
 from priblast_tpu_torch.ops import native
 from priblast_tpu_torch.ops import ungapped_extend as ungapped_op
+from priblast_tpu_torch.search import fused, seed
 from priblast_tpu_torch.search import gapped as tgapped
 from priblast_tpu_torch.search import pipeline as tpl
 from priblast_tpu_torch.utils import alphabet, fasta, store
@@ -690,3 +692,123 @@ def test_access_grids_wrapper_rejects_bad_inputs(side, bad):
             ag.inside_grids(t, s, lens, n_max, 72, dt)
         else:
             ag.outside_grids(t, s, lens, n_max, 72, dt, g, m2, A, Bo, logZ)
+
+
+@pytest.fixture(scope="module")
+def tiny_wave(tmp_path_factory):
+    """The tiny goldens' seed candidates (one wave), their parameters and
+    queries, and their native stage-1 hits."""
+    db_name = str(tmp_path_factory.mktemp("torch_gpu_wave") / "tiny_db")
+    tdb.run(DbParams(input=str(DATA / "tiny_db.fa"), db_name=db_name,
+                     engine="exact"))
+    chunks = store.load_chunks(db_name, 8)
+    p = RisParams(input="x", output="y", db_name=db_name, engine="exact")
+    p.load_db_params()
+    _names, seqs = fasta.read_fasta(DATA / "tiny_q.fa")
+    queries = []
+    for seq in seqs:
+        q_acc, q_cond = native.raccess(alphabet.access_codes(seq),
+                                       p.maximal_span,
+                                       p.min_accessible_length)
+        q_enc = alphabet.encode_query(seq, p.repeat_flag)
+        queries.append((q_enc, native.sa_build(q_enc), q_acc, q_cond))
+    pres = [native.search_chunk(q[0], q[1], q[2], q[3], chunks[0], p,
+                                stage=1) for q in queries]
+    return p, chunks, queries, seed.seed_candidates(p, chunks, queries), pres
+
+
+def _packs(queries, chunks, dev):
+    return (tpl.QueryPack([q[0] for q in queries], [q[2] for q in queries],
+                          [q[3] for q in queries], [q[1] for q in queries],
+                          devices=dev),
+            tpl.DbPack(chunks, devices=dev))
+
+
+def _bits(t):
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+@pytest.mark.gpu
+def test_fused_kernels_match_plain_versions_on_the_card(tiny_wave):
+    """The expansion (csrc/fused_expand.cu) against _expand_core on the
+    card, bit for bit, on the whole tiny wave and on blocks of 1, 31 and 33
+    pairs that start inside a candidate; the threshold's records against
+    _thresh_core on the same ungapped output, every field's bits."""
+    dev = _card()
+    p, chunks, queries, cands, _pres = tiny_wave
+    qpack, dbpack = _packs(queries, chunks, dev)
+    wb = fused._WaveBuffers(cands, qpack, dbpack, dev)
+    d, ml = p.min_accessible_length, p.max_seed_length
+    ci = int(torch.nonzero(torch.diff(wb.cum) >= 3)[0])
+    o = int(wb.cum[ci]) + 1
+    before = fe.expand_launches, fe.threshold_launches
+    for lo, n in ((0, wb.tot), (o, 1), (o, 31), (o, 33)):
+        got = fe.expand(d, ml, lo, n, wb, qpack, dbpack)
+        ref = fused._expand_core(d, ml, lo, n, wb, qpack, dbpack)
+        assert list(got) == list(ref) and len(ref["pid"]) > 0
+        for k in ref:
+            assert torch.equal(_bits(got[k]), _bits(ref[k])), k
+        res = ungapped_op.ungapped_extend(
+            got["q_sp"], got["db_sp"], got["length"], got["dbseq_start"],
+            got["acc_e"].float(), got["hyb_e"].float(), got["qb"],
+            got["qab"], got["dbb"], got["aoff"], got["coff"], qpack.bufs,
+            dbpack.bufs, d, p.drop_out_length_wo_gap)
+        rec = fe.threshold(p, res, got)
+        rref = fused._thresh_core(p, res, got)
+        assert list(rec) == list(rref)
+        for k in rref:
+            assert rec[k].dtype == rref[k].dtype, k
+            assert np.array_equal(rec[k].view(np.uint8),
+                                  rref[k].view(np.uint8)), k
+    assert fe.expand_launches == before[0] + 4
+    assert fe.threshold_launches == before[1] + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [None, 100])
+def test_fused_stream_equals_staged_oracle_on_the_card(tiny_wave, block):
+    """fused_stage on the card (its expansion and threshold kernels; one
+    block, or blocks of 100 pairs) gives the staged oracle's stream
+    (native stage 1 -> ungapped_stage -> threshold_stage), every field
+    identical in value and dtype."""
+    dev = _card()
+    p, chunks, queries, cands, pres = tiny_wave
+    qpack, dbpack = _packs(queries, chunks, dev)
+    got = fused.fused_stage(p, cands, qpack, dbpack, devices=dev,
+                            block=block)
+    ref = tpl._concat_groups(pres, [(q, 0) for q in range(len(pres))])
+    tpl._hit_bases(ref, qpack, dbpack)
+    tpl.ungapped_stage(ref, qpack, dbpack, p, device=dev)
+    ref = tpl.threshold_stage(ref, p)
+    assert len(got) > 0 and got.groups == ref.groups
+    for k in tpl.STREAM_KEYS:
+        assert got.soa[k].dtype == ref.soa[k].dtype, k
+        assert np.array_equal(got.soa[k], ref.soa[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [5, 2, 20])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_epilogue_kernel_matches_plain_version_on_the_card(dtype, w):
+    """The epilogue kernel against accessibility_from_probabilities on the
+    card, on the kernels' p_w and p_w1 of a ragged batch with padding rows:
+    acc and cond bit for bit (both call the same libdevice logf); none of
+    it read back when the lengths are checked."""
+    dev = _card()
+    dt = ab._DTYPES[dtype]
+    t, _g, s, lens, n_max = _access_batch(dev, dtype=dt)
+    pw = ab.window_probabilities(70, 5, n_max, dt, s, lens, t)
+    kT = ab._linmodel(70).sp.kT
+    ref = torch.stack(ab.accessibility_from_probabilities(*pw, lens, w,
+                                                          n_max, kT))
+    before = ap.epilogue_launches
+    ap.accessibility(*pw, lens, w, n_max, kT, checked=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ap.accessibility(*pw, lens, w, n_max, kT, checked=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ap.epilogue_launches == before + 2
+    assert got.shape == ref.shape and float(ref.abs().max()) > 0
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
