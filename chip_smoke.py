@@ -37,13 +37,19 @@ Phases (any failure ends the run with a non-zero exit code):
      `--engine exact` (the churn of the float32 device engine); the mid
      stage and the fused stage's candidate packing again on the main
      path's inputs, warm and after the C heap's free pages went back to
-     the OS (malloc_trim), which splits their first runs' excess; one
-     pair block of the main path's wave again, at its block size, with
-     the device memory it takes per pair held to fused.PAIR_BYTES, and on
-     that block the expansion kernel's survivors held bit for bit to
-     _expand_core's and the threshold's records to _thresh_core's on the
-     same ungapped output, each timed beside its plain version, its byte
-     bound and (the threshold) the library's compaction, torch.nonzero
+     the OS (malloc_trim), which splits their first runs' excess; the
+     fused stage's split by part (torch.profiler: host ms by part and
+     CUDA runtime call, the card's ms by kernel and copy) in a fresh
+     process (`--split-child`), its first and second `ris`; the pairs per
+     candidate of the main path's first block; the main path's wave again
+     through its pair blocks, two in flight, with the device memory per
+     pair of a block held to fused.PAIR_BYTES and, run again, no pinned
+     host allocation; on its first block the expansion kernel's survivors
+     held bit for bit to _expand_core's and the threshold's records to
+     _thresh_core's on the same ungapped output, also at grids of the
+     card's SMs and twice that, each timed beside its plain version, its
+     byte bound (the threshold's also by the 32-byte sectors its reads
+     touch) and (the threshold) the library's compaction, torch.nonzero
      and boolean indexing; then the staged oracle
      (seed_stage -> ungapped_stage -> threshold_stage) against the fused
      stage on the first 20 queries, same packs and accessibilities:
@@ -122,7 +128,9 @@ Phases (any failure ends the run with a non-zero exit code):
      staged in shared memory, or read from device memory) held bit for
      bit and timed in turns; the epilogue kernel on the probability
      kernel's output against accessibility_from_probabilities, bit for
-     bit, with its time, the plain version's and its byte bound, and a
+     bit, with its time, the plain version's and its byte bound, the
+     launch alone (a CUDA graph of 100 launches, and torch.profiler over
+     100 calls), and a
      check that PyTorch divides a tensor by a host scalar on this card as
      the kernel does (a product with the float32 reciprocal);
   7b. nosync: window_probabilities and the epilogue on the same db and ris
@@ -597,6 +605,94 @@ def device_ms_by_kernel(fn, names: tuple[str, ...] = ()) -> dict:
     return dict(out)
 
 
+def profiled(fn):
+    """fn() under torch.profiler (host and card), with every
+    profiling.stage also a record_function range of its name: (fn's
+    result, the profiler's events)."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from priblast_tpu_torch.utils import profiling
+
+    stage0 = profiling.stage
+
+    @contextlib.contextmanager
+    def labelled(name, devices=None):
+        with record_function(name), stage0(name, devices):
+            yield
+
+    profiling.stage = labelled
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            out = fn()
+    finally:
+        profiling.stage = stage0
+    return out, p.events()
+
+
+def stage_split(events, prefix: str = "ris.fused.") -> dict:
+    """The sub-stages `prefix`* of a profiled() run, split by part: per
+    stage its ranges' count and host ms; the entry wait (the first
+    synchronising CUDA call of each range: the wait for the work queued
+    before it); host ms by top-level part (the ranges' direct children:
+    PyTorch ops and CUDA runtime calls such as the wrappers' launches);
+    host ms of every CUDA runtime call by name (cudaHostAlloc pins host
+    memory, cudaMalloc takes a new device segment, cudaMemcpyAsync and the
+    synchronising calls read and copy); `python`, the rest of the ranges;
+    and the card's ms by kernel and copy that start inside the ranges."""
+    from torch.autograd import DeviceType
+
+    wins = sorted((e for e in events if e.name.startswith(prefix)
+                   and e.device_type == DeviceType.CPU),
+                  key=lambda e: e.time_range.start)
+    out = {w.name: {"ranges": 0, "ms": 0.0, "entry_wait": 0.0,
+                    "parts": Counter(), "runtime": Counter(),
+                    "device": Counter()} for w in wins}
+    for w in wins:
+        out[w.name]["ranges"] += 1
+        out[w.name]["ms"] += (w.time_range.end - w.time_range.start) / 1e3
+    syncs = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
+             "cudaEventSynchronize")
+    first_sync = set()
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if e in wins:
+            continue
+        t = e.time_range.start
+        w = next((w for w in wins
+                  if w.time_range.start <= t < w.time_range.end), None)
+        if w is None:
+            continue
+        d, ms = out[w.name], (e.time_range.end - t) / 1e3
+        if e.device_type != DeviceType.CPU:
+            d["device"][e.name[:48]] += ms
+            continue
+        if e.name.startswith("cuda"):
+            d["runtime"][e.name] += ms
+            if e.name in syncs and id(w) not in first_sync:
+                first_sync.add(id(w))
+                d["entry_wait"] += ms
+        if e.cpu_parent is None or e.cpu_parent is w:
+            d["parts"][e.name] += ms
+    for d in out.values():
+        d["python"] = d["ms"] - sum(d["parts"].values())
+        for k in ("parts", "runtime", "device"):  # JSON-able, largest first
+            d[k] = dict(d[k].most_common())
+    return out
+
+
+def show_split(split: dict) -> str:
+    def top(c: dict, k: int = 6) -> str:
+        return ", ".join(f"{n} {v:.4f}" for n, v in list(c.items())[:k])
+
+    return "; ".join(
+        f"{name}: {d['ranges']} ranges {d['ms']:.4f} ms (entry wait "
+        f"{d['entry_wait']:.4f}; parts {top(d['parts'])}; python "
+        f"{d['python']:.4f}; CUDA runtime {top(d['runtime'])}; card "
+        f"{top(d['device'])})" for name, d in split.items())
+
+
 def access_bound_ms(B: int, n1: int, band: int, item: int, inside: bool,
                     dtype: str = "float32"):
     """Least time the card could take for one accessibility column scan of
@@ -856,6 +952,52 @@ def threshold_bound_ms(n: int, n_kept: int):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
 
 
+EP_REPS = 100    # launches over which the epilogue launch alone is timed
+
+
+def epilogue_alone(call) -> dict:
+    """The device ms of one launch of `call` (a wrapper that launches one
+    kernel and synchronises nothing), without its host work, two ways:
+    a CUDA graph of EP_REPS calls replayed between CUDA events, and
+    torch.profiler's device time summed over EP_REPS eager calls; each
+    over EP_REPS. A way that fails says why."""
+    import torch
+
+    out = {}
+    try:
+        call()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(EP_REPS):
+                call()
+        out["graph ms"] = f"{cuda_ms(g.replay, 5) / EP_REPS:.5f}"
+    except Exception as e:  # reported, not fatal: a measurement only
+        out["graph ms"] = f"not measured ({type(e).__name__}: {e})"[:160]
+    by_kernel = device_ms_by_kernel(
+        lambda: [call() for _ in range(EP_REPS)])
+    out["profiler ms"] = (f"{sum(by_kernel.values()) / EP_REPS:.5f}"
+                          if by_kernel else "not measured")
+    return out
+
+
+def threshold_sector_bound_ms(energy, cols, thr: float):
+    """threshold_bound_ms counted by the 32-byte sectors the reads touch:
+    the float32 energy of every hit read once; of each other input column
+    (`cols`; a column passed twice, as q_len and db_len, counted once) the
+    sectors that hold a kept hit's entry, each once; each kept hit's
+    record written once (44 bytes). Returns (bound ms, "bytes", the
+    bytes)."""
+    import torch
+
+    keep = torch.nonzero(energy.double() <= thr).squeeze(1)
+    nbytes = 4 * energy.numel() + 44 * keep.numel()
+    for ptr, col in {c.data_ptr(): c for c in cols}.items():
+        per = 32 // col.element_size()
+        nbytes += 32 * int(torch.unique_consecutive(keep // per).numel())
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
 def epilogue_bound_ms(B: int, n_max: int, item: int):
     """Least time the card could take for the accessibility epilogue of B
     rows of n_max columns (csrc/access_prob.cu: epilogue_kernel), by bytes:
@@ -981,10 +1123,47 @@ def grids_wrapper_split(ag, side: str, gargs, oin=None,
     return out
 
 
+def split_child(db: str) -> None:
+    """The main path's `ris` (device chain; the queries beside the db
+    directory `db`) twice in this process, with the package beside this
+    script, each fused stage under torch.profiler; prints the two
+    stage_split()s as one JSON line. `python3 chip_smoke.py --split-child
+    DB` from a copy of this script in another checkout splits that
+    checkout's fused stage."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from priblast_tpu_torch import cli
+    from priblast_tpu_torch.search import fused
+
+    if not torch.cuda.is_available():
+        fail("the split needs a GPU")
+    os.environ["PRIBLAST_DEVICE_EXTEND"] = "1"
+    work = Path(db).resolve().parent
+    stage0, splits = fused.fused_stage, []
+
+    def split(*a, **k):
+        out, events = profiled(lambda: stage0(*a, **k))
+        splits.append(stage_split(events))
+        return out
+
+    fused.fused_stage = split
+    for _ in range(2):
+        cli.main(["ris", "-i", str(work / "q.fa"), "-o",
+                  str(work / "ris_split.txt"), "-d", db])
+    print(json.dumps(splits))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--split-child", metavar="DB",
+                        help="only split the fused stage of `ris` on the db "
+                             "DB (and the q.fa beside it) in this process")
     args = parser.parse_args()
+    if args.split_child:
+        split_child(args.split_child)
+        return 0
 
     if not (REPO / "priblast_tpu_torch" / "csrc" / "gapped_extend.cu").is_file():
         fail(f"no priblast_tpu_torch package beside {__file__}")
@@ -1356,24 +1535,67 @@ def main() -> int:
           f"({wb.tot} pairs) {tag}", flush=True)
     mid_runs.clear()
 
-    # ---- 4d. one pair block of the main path's wave again, at the main
-    # path's block size: its device memory per pair and its sub-stages
+    # ---- 4d. the fused stage's split by part on the main path (the
+    # process's first) and again on the same wave (its second); then one
+    # pair block of the main path's wave again, at the main path's block
+    # size: its device memory per pair and its sub-stages
+    child = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--split-child",
+         str(db_gpu)], capture_output=True, text=True)
+    check(child.returncode == 0, "the split of the main path in a fresh "
+          f"process failed: {child.stderr[-2000:]}")
+    for label, split in zip(("first", "second"), json.loads(
+            child.stdout.strip().splitlines()[-1])):
+        print(f"[fused] split of the main path's fused stage in a fresh "
+              f"process, its {label} ris (torch.profiler over the stage): "
+              f"{show_split(split)} {tag}", flush=True)
     block = min(fused.block_cap(dev), wb.tot)
+    per_cand = torch.diff(wb.cum)
+    # the candidates whose pairs start before the block's end
+    n_in = int(torch.searchsorted(wb.cum[:-1], torch.tensor(
+        [block], device=wb.cum.device)))
+    in_block = per_cand[:n_in]
+    in_block = in_block[in_block > 0].double()
+    q = torch.quantile(in_block.cpu(), torch.tensor(
+        [0.1, 0.5, 0.9, 0.99], dtype=torch.float64))
+    print(f"[fused] pairs per candidate over the main path's first block: "
+          f"{in_block.numel()} candidates, mean "
+          f"{float(in_block.mean()):.3f}, quantiles 0.1/0.5/0.9/0.99 "
+          + "/".join(f"{float(v):.0f}" for v in q)
+          + f", max {int(in_block.max())}; share of the block's pairs in "
+          f"candidates of >= 256 pairs "
+          f"{float(in_block[in_block >= 256].sum() / in_block.sum()):.4f} "
+          f"{tag}", flush=True)
+    # the main path's wave again through its blocks, two in flight (a
+    # block's records stay on the card until the next block's expansion
+    # has been launched): the peak device memory per pair of a block,
+    # against the stream of the main path's fused stage; then under
+    # torch.profiler: no host memory pinned (the ring is the process's)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     prof.reset()
-    kept = len(fused.run_block(f_p, 0, block, wb, f_qp, f_dp, dev)["pid"])
+    stream_all = fused.run_blocks(f_p, wb, f_qp, f_dp, dev)
     per_pair = (torch.cuda.max_memory_allocated() - base) / block
-    print(f"[fused] one pair block of the main path's wave again: {block} of "
-          f"its {wb.tot} pairs, {kept} hits kept; peak device memory "
-          f"{per_pair:.1f} B per pair (PAIR_BYTES {fused.PAIR_BYTES}); "
-          "seconds " + json.dumps({k: round(v, 4) for k, v in
-                                   sorted(prof.snapshot().items())})
+    blocks_s = prof.snapshot()
+    _again, events = profiled(lambda: fused.run_blocks(f_p, wb, f_qp, f_dp,
+                                                       dev))
+    pinned = sum(e.name in ("cudaHostAlloc", "cudaMallocHost")
+                 for e in events)
+    del _again, events
+    print(f"[fused] the main path's wave again in blocks of {block} pairs "
+          f"({-(-wb.tot // block)} blocks, two in flight): "
+          f"{len(stream_all)} hits kept; peak device memory {per_pair:.1f} B "
+          f"per pair of a block (PAIR_BYTES {fused.PAIR_BYTES}); pinned host "
+          f"allocations in a second run {pinned}; seconds "
+          + json.dumps({k: round(v, 4) for k, v in sorted(blocks_s.items())})
           + f" {tag}", flush=True)
     check(per_pair <= fused.PAIR_BYTES,
           f"a pair block takes {per_pair:.1f} B per pair, more than "
           f"fused.PAIR_BYTES = {fused.PAIR_BYTES}")
+    check(pinned == 0, f"the fused stage pinned host memory {pinned} times "
+          "after its first use")
+    del stream_all
     # the expansion and threshold kernels against their plain versions on
     # that block, bit for bit, then timed beside their bounds
     d_acc, max_len = f_p.min_accessible_length, f_p.max_seed_length
@@ -1397,18 +1619,59 @@ def main() -> int:
         f_p.drop_out_length_wo_gap)
     rec_k = fexp.threshold(f_p, res, hits_k)
     rec_p = fused._thresh_core(f_p, res, hits_k)
-    check(list(rec_k) == list(rec_p) and all(
-        rec_k[key].dtype == v.dtype and np.array_equal(
-            rec_k[key].view(np.uint8), v.view(np.uint8))
-        for key, v in rec_p.items()),
-        "the threshold's records differ from _thresh_core's")
+
+    def same_records(a: dict, b: dict) -> bool:
+        return list(a) == list(b) and all(
+            a[key].dtype == v.dtype and np.array_equal(
+                a[key].view(np.uint8), v.view(np.uint8))
+            for key, v in b.items())
+
+    check(same_records(rec_k, rec_p),
+          "the threshold's records differ from _thresh_core's")
     n_thr = len(rec_k["pid"])
     del rec_p
     flib, stream = fexp._lib(), torch.cuda.current_stream().cuda_stream
+    # both kernels at other geometries, bit for bit, and timed: a CTA per
+    # SM, a CTA per tile, and other threads per CTA (the main path: as many
+    # CTAs as the card holds at once, of fexp.EXPAND_THREADS and
+    # fexp.THRESH_THREADS threads)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = {"expansion": {}, "threshold launch": {}}
+    for name, n_items, threads_all in (
+            ("expansion", block, (fexp.EXPAND_THREADS, 64, 256, 512)),
+            ("threshold launch", n_exp, (fexp.THRESH_THREADS, 128, 256,
+                                         1024))):
+        for threads, grid in ((threads_all[0], sms), (threads_all[0], -1),
+                              *((t, 0) for t in threads_all[1:])):
+            g = -(-n_items // threads) if grid < 0 else grid
+            if name == "expansion":
+                got = fexp.expand_call(flib, *eargs, stream, threads, g)
+                check(all(torch.equal(got[key].view(torch.int64),
+                                      a.view(torch.int64))
+                          for key, a in hits_k.items()),
+                      f"the expansion kernel differs at {g} CTAs of "
+                      f"{threads}")
+                del got
+
+                def call():
+                    fexp.expand_call(flib, *eargs, stream, threads, g)
+            else:
+                check(same_records(fexp.threshold_call(
+                    flib, thr, res, hits_k, stream, threads, g), rec_k),
+                    f"the threshold kernel differs at {g} CTAs of "
+                    f"{threads}")
+
+                def call():
+                    fexp.threshold_launch(flib, thr, res, hits_k, stream,
+                                          threads, g)
+            shapes[name][f"{threads} threads " + (
+                "a CTA per tile" if grid < 0 else
+                f"{grid or 'default'} CTAs")] = cuda_ms(call, 5)
     ms_exp = cuda_ms(lambda: fexp.expand(*eargs), 5)
     plain_exp = cuda_ms(lambda: fused._expand_core(*eargs), 2)
-    # the threshold's launches alone (no read, no copy), then the whole
-    # wrapper (the count read and the records' copy to the host)
+    # the threshold's launch alone (no read, no copy), then the whole
+    # wrapper (the count read and the records' copy to the host through
+    # the pinned ring, into new host arrays)
     ms_thr = cuda_ms(lambda: fexp.threshold_launch(flib, thr, res, hits_k,
                                                    stream), 5)
     ms_thr_all = cuda_ms(lambda: fexp.threshold(f_p, res, hits_k), 5)
@@ -1423,16 +1686,19 @@ def main() -> int:
         return [col[keep] for col in thr_cols]
 
     lib_thr = cuda_ms(compaction, 5)
-    dev_exp = device_ms_by_kernel(lambda: fexp.expand(*eargs), (
-        "expand_count_kernel", "scan_kernel", "expand_scatter_kernel"))
+    dev_exp = device_ms_by_kernel(lambda: fexp.expand(*eargs),
+                                  ("expand_kernel",))
     dev_thr = device_ms_by_kernel(
         lambda: fexp.threshold_launch(flib, thr, res, hits_k, stream),
-        ("thresh_count_kernel", "scan_kernel", "thresh_scatter_kernel"))
+        ("thresh_kernel",))
     exp_bound, exp_by, exp_bytes = expand_bound_ms(
         d_acc, max_len, 0, block, wb, f_qp, f_dp, n_exp)
     thr_bound, thr_by, thr_bytes = threshold_bound_ms(n_exp, n_thr)
+    sec_bound, _by, sec_bytes = threshold_sector_bound_ms(
+        res["energy"], thr_cols[:7] + thr_cols[8:], thr)
     print(f"[fused] fused_expand on that block ({block} pairs, {n_exp} "
-          f"survivors, every column bit for bit with _expand_core): "
+          f"survivors, every column bit for bit with _expand_core, also at "
+          f"the geometries below): "
           f"{ms_exp:.4f} ms through the wrapper (its one read included), "
           f"plain {plain_exp:.2f} ms, bound {exp_bound:.6f} ms ({exp_by}, "
           f"{exp_bytes} bytes), {ms_exp / exp_bound:.1f}x bound; launches "
@@ -1440,17 +1706,26 @@ def main() -> int:
               f"{k} {v:.4f}" for k, v in dev_exp.items()) or "not measured")
           + f"; library none {tag}", flush=True)
     print(f"[fused] fused_threshold on its ungapped output ({n_exp} hits, "
-          f"{n_thr} kept, every record bit for bit with _thresh_core): "
-          f"{ms_thr:.4f} ms for the launches, {ms_thr_all:.4f} ms through "
-          f"the wrapper (the count read and one copy of "
-          f"{fexp.RECORD_BYTES * n_thr} bytes to the host), plain "
+          f"{n_thr} kept, every record bit for bit with _thresh_core, also "
+          f"at the geometries below): "
+          f"{ms_thr:.4f} ms for the launch, {ms_thr_all:.4f} ms through "
+          f"the wrapper (the count read and the records' "
+          f"{fexp.RECORD_BYTES * n_thr} bytes to new host arrays through the "
+          f"pinned ring), plain "
           f"{plain_thr:.2f} ms (with its ten copies), bound "
           f"{thr_bound:.6f} ms ({thr_by}, {thr_bytes} bytes, the copy not "
-          f"included), {ms_thr / thr_bound:.1f}x bound; library "
+          f"included), {ms_thr / thr_bound:.1f}x bound; by the 32-byte "
+          f"sectors its reads touch {sec_bound:.6f} ms ({sec_bytes} bytes), "
+          f"{ms_thr / sec_bound:.2f}x that; library "
           f"(torch.nonzero and boolean indexing of the same columns) "
           f"{lib_thr:.4f} ms; launches by torch.profiler " + (", ".join(
               f"{k} {v:.4f}" for k, v in dev_thr.items()) or "not measured")
           + f" {tag}", flush=True)
+    for name, times in shapes.items():
+        print(f"[fused] the {name} at other geometries, ms (the expansion "
+              "through its wrapper): " + "; ".join(
+                  f"{k} {v:.4f}" for k, v in times.items()) + f" {tag}",
+              flush=True)
     fused_rec = {
         "fused_expand": dict(ms=ms_exp, plain_ms=plain_exp,
                              bound_ms=exp_bound, bound_by=exp_by, err=0.0,
@@ -2148,6 +2423,8 @@ def main() -> int:
             dev_ep = device_ms_by_kernel(
                 lambda: ap.accessibility(*ep_args, checked=True),
                 ("epilogue_kernel",))
+            ep_alone = epilogue_alone(
+                lambda: ap.accessibility(*ep_args, checked=True))
             # PyTorch's division of a tensor by a host scalar on the card,
             # which the kernel follows: a product with the scalar's float32
             # reciprocal, where an IEEE division would differ
@@ -2220,6 +2497,8 @@ def main() -> int:
               + (f"{dev_ep['epilogue_kernel']:.4f} ms by torch.profiler"
                  if "epilogue_kernel" in dev_ep else
                  f"not measured (the profiler saw {json.dumps(dev_ep)})")
+              + f"; the launch alone over {EP_REPS} launches: "
+              + ", ".join(f"{k} {v}" for k, v in ep_alone.items())
               + f"; plain {plain_ep:.4f} ms, bound {bound:.6f} ms "
               f"({bound_by}), {ms_ep / bound:.1f}x bound; acc and cond bit "
               f"for bit; x / 1000 by PyTorch on the card equals x * "

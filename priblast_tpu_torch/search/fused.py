@@ -8,17 +8,20 @@ device, one pass per block of candidate pairs:
   host   : seed DFS candidates (search/seed.py; reference
            src/seed_search.cpp:153-230), per CANDIDATE (an SA interval
            pair), shipped once per wave (_WaveBuffers)
-  device : the expansion (ops/fused_expand.py:expand; its plain version
-           _expand_core): pair generation (a search over the candidate
-           pair-count prefix), suffix-array and position-map reads, window
-           accessibility and the interaction filter (reference
-           CalcInteractionEnergy, src/seed_search.cpp:47-151), compaction;
-           the ungapped extension kernel (ops/ungapped_extend.py) on the
-           survivors; the threshold (ops/fused_expand.py:threshold; its
-           plain version _thresh_core): the interaction-energy threshold
-           (reference: src/rna_interaction_search.cpp:389-391) and
-           compaction into one packed buffer
-  host   : reads back only the surviving hits, in one copy
+  device : the expansion (ops/fused_expand.py:expand_start; its plain
+           version _expand_core): pair generation (a search over the
+           candidate pair-count prefix), suffix-array and position-map
+           reads, window accessibility and the interaction filter
+           (reference CalcInteractionEnergy, src/seed_search.cpp:47-151),
+           compaction, one launch; the ungapped extension kernel
+           (ops/ungapped_extend.py) on the survivors; the threshold
+           (ops/fused_expand.py:threshold_start; its plain version
+           _thresh_core): the interaction-energy threshold (reference:
+           src/rna_interaction_search.cpp:389-391) and compaction into
+           records, one launch
+  host   : reads back only the surviving hits, streamed through a small
+           pinned ring into the stream's arrays while the next block's
+           expansion runs
 
 Pairs are numbered candidate-major, db position outer, query position
 inner (reference: src/seed_search.cpp:274-301); every compaction keeps
@@ -34,8 +37,11 @@ With several devices each block is cut into contiguous sub-blocks, one
 per device (parallel/dist.py), each run on its device's copies of the
 packs and candidates; joined in device order, pair ids stay ascending.
 
-Each part is timed as a sub-stage of `ris.fused` (ris.fused.pack,
-.expand, .ungapped, .threshold; synchronised on the card).
+Each part is timed as a sub-stage of `ris.fused`: ris.fused.pack,
+.expand (the launch, then the wait and the read), .ungapped, .threshold
+(the launch and the kept count's read), synchronised on the card's
+compute stream, and .records (the records' copies to the host, which
+wait on their own events).
 """
 
 from __future__ import annotations
@@ -59,13 +65,15 @@ _R_DBB = 5    # chunk sequence base
 _R_NQ = 6     # query-interval width (the inner pair dimension)
 _ROWS = 7
 
-# device bytes per pair of a block at its peak, the threshold: per survivor
-# of the filter its 13 int64 / float64 columns (104 B), the ungapped
-# kernel's output (44 B) and the threshold's packed buffer, sized for every
-# survivor (44 B): 192 B if every pair passes (the kept flags, 1 B per
-# pair, are freed by then). chip_smoke.py reads it on the main path's first
-# block and fails above this (H100: 162.4 B; 84.6% of that wave's pairs
-# pass).
+# device bytes per pair of a block at its peak, with the previous block's
+# records in flight: the expansion's 13 int64 / float64 columns, sized for
+# every pair of the block (104 B); while it runs, the previous block's
+# records (44 B per survivor of that block) until they are drained to the
+# host; then per survivor the float32 acc_e / hyb_e (8 B) and the ungapped
+# kernel's output (44 B), and, those two freed, the threshold's records
+# (44 B): 104 + 44 + 44 = 192 B if every pair passes (the scratch, 8 B a
+# tile, and the allocator's rounding take the rest). chip_smoke.py reads it
+# on the main path's wave, two blocks in flight, and fails above this.
 PAIR_BYTES = 200
 
 
@@ -180,16 +188,26 @@ def block_cap(device) -> int:
     return pl._batch_cap(device, PAIR_BYTES, 0.02, 1 << 21, 1 << 23)
 
 
-def run_block(p, o: int, B: int, wb: _WaveBuffers, qpack, dbpack,
-              device) -> dict:
-    """Pairs o .. o + B - 1 of the wave through the expansion, the
-    ungapped and the threshold kernels on `device` (their plain versions
-    on the CPU), from its copies of the packs and candidates:
-    `_thresh_core`'s host columns."""
+def launch_block(p, o: int, B: int, wb: _WaveBuffers, qpack, dbpack,
+                 device) -> fexp.PendingHits:
+    """The launch half of a block: pairs o .. o + B - 1 of the wave into
+    the expansion kernel on `device` (its plain version on the CPU), from
+    its copies of the packs and candidates; nothing is read back."""
+    with prof.stage("ris.fused.expand"):
+        return fexp.expand_start(p.min_accessible_length, p.max_seed_length,
+                                 o, B, wb.at(device), qpack.at(device),
+                                 dbpack.at(device))
+
+
+def finish_block(p, launched: fexp.PendingHits, qpack, dbpack,
+                 device) -> fexp.PendingRecords:
+    """The finish half of a block: the expansion's survivors (one read),
+    the ungapped kernel and the threshold on `device`; the kept records
+    stay on the card until drained."""
     d = p.min_accessible_length
-    wb, qpack, dbpack = wb.at(device), qpack.at(device), dbpack.at(device)
+    qpack, dbpack = qpack.at(device), dbpack.at(device)
     with prof.stage("ris.fused.expand", device):
-        hits = fexp.expand(d, p.max_seed_length, o, B, wb, qpack, dbpack)
+        hits = launched.result()
     with prof.stage("ris.fused.ungapped", device):
         res = uop.ungapped_extend(
             hits["q_sp"], hits["db_sp"], hits["length"], hits["dbseq_start"],
@@ -197,7 +215,18 @@ def run_block(p, o: int, B: int, wb: _WaveBuffers, qpack, dbpack,
             hits["qab"], hits["dbb"], hits["aoff"], hits["coff"],
             qpack.bufs, dbpack.bufs, d, p.drop_out_length_wo_gap)
     with prof.stage("ris.fused.threshold", device):
-        return fexp.threshold(p, res, hits)
+        return fexp.threshold_start(p, res, hits)
+
+
+def _drain(parts, sink: fexp.HostRecords, at: int) -> int:
+    """A block's records, (device, PendingRecords) in shard order, into the
+    sink from row `at`, each shard on its own thread; the next row."""
+    rows = np.cumsum([at] + [part.n2 for _dev, part in parts])
+    with prof.stage("ris.fused.records"):
+        dist.run_sharded(lambda _dev, part, lo: part.drain(sink, lo),
+                         [(dev, part, int(lo))
+                          for (dev, part), lo in zip(parts, rows)])
+    return int(rows[-1])
 
 
 def fused_stage(p, cands, qpack, dbpack, *, devices,
@@ -205,29 +234,43 @@ def fused_stage(p, cands, qpack, dbpack, *, devices,
     """Post-threshold HitStream of a wave's seed candidates (`cands` from
     search/seed.py:seed_candidates): the stream pipeline.seed_stage ->
     ungapped_stage -> threshold_stage gives, one device pass per block of
-    `block` pairs (default: the least block_cap of `devices`). Each block
-    is split over `devices` (one device or a list; dist.split_rows) into
-    contiguous sub-blocks, each run on its device and thread; the parts
-    join in shard order, so pair ids stay ascending."""
-
+    `block` pairs (default: the least block_cap of `devices`); see
+    run_blocks."""
     devices = dist.device_list(devices)
     with prof.stage("ris.fused.pack", devices):
         wb = _WaveBuffers(cands, qpack, dbpack, devices)
+    return run_blocks(p, wb, qpack, dbpack, devices, block)
+
+
+def run_blocks(p, wb: _WaveBuffers, qpack, dbpack, devices,
+               block: int | None = None) -> pl.HitStream:
+    """The packed wave's blocks of `block` pairs through the kernels, into
+    one host stream. Each block is split over `devices` (one device or a
+    list; dist.split_rows) into contiguous sub-blocks, each run on its
+    device and thread; the parts join in block and shard order, so pair ids
+    stay ascending. A block's expansion is launched before the previous
+    block's records are drained to the host (their copies then overlap the
+    expansion), and that block's records stay on its card until the next
+    block's expansion has been launched."""
+    devices = dist.device_list(devices)
     if block is None:
         block = min(block_cap(dev) for dev in dist.distinct(devices))
-    parts = []
+    sink = fexp.HostRecords(wb.tot)  # pages taken only where records land
+    n, parts = 0, []
     for o in range(0, wb.tot, block):
         rows = dist.split_rows(min(block, wb.tot - o), len(devices))
-        parts += dist.run_sharded(
-            lambda dev, lo, n: run_block(p, lo, n, wb, qpack, dbpack, dev),
-            [(dev, o + lo, hi - lo)
-             for dev, (lo, hi) in zip(devices, rows) if hi > lo])
-    empty = {**{k: np.zeros(0, np.int32) for k in (*uop.INT_KEYS,
-                                                     "dbseq_id")},
-             **{k: np.zeros(0, np.float32) for k in uop.FLOAT_KEYS},
-             "pid": np.zeros(0, np.int64)}
-    flat = {k: np.concatenate([v] + [part[k] for part in parts])
-            for k, v in empty.items()}
+        shards = [(dev, o + lo, hi - lo)
+                  for dev, (lo, hi) in zip(devices, rows) if hi > lo]
+        launched = dist.run_sharded(
+            lambda dev, lo, m: launch_block(p, lo, m, wb, qpack, dbpack,
+                                            dev), shards)
+        n = _drain(parts, sink, n)
+        parts = list(zip([dev for dev, _lo, _m in shards], dist.run_sharded(
+            lambda dev, pending: finish_block(p, pending, qpack, dbpack, dev),
+            [(dev, pending) for (dev, _lo, _m), pending in zip(shards,
+                                                               launched)])))
+    n = _drain(parts, sink, n)
+    flat = sink.columns(n)
     pids = flat.pop("pid")
     groups = [(qid, cid, int(np.searchsorted(pids, lo)),
                int(np.searchsorted(pids, hi)))

@@ -2,9 +2,10 @@
 
 Every pipeline stage can be timed with ``stage(name, devices)``; a summary
 is printed when PRIBLAST_TIMINGS=1. On CUDA devices the stage
-synchronises every card of the list before reading the clock on each
-side, so the time covers the device work the stage queued on all of its
-shards and not only its launches.
+synchronises the current stream of every card of the list before reading
+the clock on each side, so the time covers the device work the stage
+queued on all of its shards and not only its launches; work on other
+streams (the fused stage's record copies) runs on.
 ``device_trace(name)`` wraps a block in a ``torch.profiler`` trace
 (exported as a Chrome trace) when PRIBLAST_TRACE_DIR is set.
 
@@ -33,8 +34,8 @@ def enabled() -> bool:
 
 
 def _sync(devices) -> None:
-    """Wait for every card of `devices` (one device or a list; None for
-    none)."""
+    """Wait for the current stream of every card of `devices` (one device
+    or a list; None for none)."""
     if devices is None:
         return
     import torch
@@ -43,14 +44,15 @@ def _sync(devices) -> None:
         devices = [devices]
     for dev in dict.fromkeys(torch.device(d) for d in devices):
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            torch.cuda.current_stream(dev).synchronize()
 
 
 @contextlib.contextmanager
 def stage(name: str, devices=None):
     """Time the block as stage `name`; on the cards of `devices` (one
-    device or a list) the clock is read after each of them has finished
-    its queued work, so a split stage covers all of its shards."""
+    device or a list) the clock is read after each of their current
+    streams has finished its queued work, so a split stage covers all of
+    its shards."""
     _sync(devices)
     t0 = time.perf_counter()
     try:

@@ -10,8 +10,12 @@
 // others wait at __syncthreads. The test
 // rewrites the kernel launch `k<<<grid, threads, smem, stream>>>(p)` into
 // emu_launch(k, grid, threads, smem, p), which runs the blocks one after
-// another, and defines the dynamic shared memory array in the kernel's
-// namespace.
+// another, or, after emu_concurrent_blocks(1), all of them at once (a
+// block's threads may then wait on another block's, as a decoupled
+// look-back does), and the dynamic shared memory declaration into a
+// pointer to the block's own (emu_smem). Device memory is host memory:
+// atomicAdd is an atomic add, __threadfence a sequentially consistent
+// fence, a volatile 64-bit access one access, and the copies memcpy.
 #pragma once
 #include <algorithm>
 #include <cmath>
@@ -76,14 +80,26 @@ struct EmuBarrier {
   }
 };
 constexpr int kEmuMaxThreads = 1024;
-inline EmuBarrier emu_bar;                          // the block's
-inline EmuBarrier emu_warp_bar[kEmuMaxThreads / 32];  // one per warp
-// a warp collective's exchange slots, used in turns: a lane can reuse a
-// buffer only after the whole warp has met again, so one wait suffices
-inline int64_t emu_slot[2][kEmuMaxThreads];
+// a block's barriers, exchange slots and shared memory
+struct EmuBlock {
+  EmuBarrier bar;                          // the block's
+  EmuBarrier warp_bar[kEmuMaxThreads / 32];  // one per warp
+  // a warp collective's exchange slots, used in turns: a lane can reuse a
+  // buffer only after the whole warp has met again, so one wait suffices
+  int64_t slot[2][kEmuMaxThreads];
+  alignas(16) unsigned char smem[kEmuSmem];
+};
+inline thread_local EmuBlock *emu_blk = nullptr;  // the calling thread's
 inline thread_local int emu_turn = 0;
+inline bool emu_concurrent = false;
 
-inline EmuBarrier &emu_warp() { return emu_warp_bar[threadIdx.x / 32]; }
+extern "C" __attribute__((visibility("default"))) void
+emu_concurrent_blocks(int on) {
+  emu_concurrent = on != 0;
+}
+
+inline unsigned char *emu_smem() { return emu_blk->smem; }
+inline EmuBarrier &emu_warp() { return emu_blk->warp_bar[threadIdx.x / 32]; }
 // first thread and thread count of the calling thread's warp
 inline int emu_lane0() { return (int)(threadIdx.x & ~31u); }
 inline int emu_lanes() {
@@ -91,14 +107,14 @@ inline int emu_lanes() {
 }
 // every lane of the calling warp posts v; returns the posted values
 inline const int64_t *emu_exchange(int64_t v) {
-  int64_t *slot = emu_slot[emu_turn];
+  int64_t *slot = emu_blk->slot[emu_turn];
   emu_turn ^= 1;
   slot[threadIdx.x] = v;
   emu_warp().wait();
   return slot;
 }
 
-inline void __syncthreads() { emu_bar.wait(); }
+inline void __syncthreads() { emu_blk->bar.wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp().wait(); }
 inline unsigned __ballot_sync(unsigned, bool pred) {
   const int64_t *slot = emu_exchange(pred);
@@ -133,10 +149,45 @@ inline float __int_as_float(int x) {
   std::memcpy(&f, &x, 4);
   return f;
 }
+inline long long __double_as_longlong(double x) {
+  long long f;
+  std::memcpy(&f, &x, 8);
+  return f;
+}
 inline double __longlong_as_double(long long x) {
   double f;
   std::memcpy(&f, &x, 8);
   return f;
+}
+
+template <class T> T atomicAdd(T *p, T v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+
+enum cudaMemcpyKind { cudaMemcpyDeviceToHost = 2 };
+enum { cudaStreamNonBlocking = 1 };
+inline int cudaStreamCreateWithFlags(cudaStream_t *s, unsigned) {
+  *s = nullptr;
+  return 0;
+}
+inline int cudaMemsetAsync(void *p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return 0;
+}
+inline int cudaMemcpyAsync(void *dst, const void *src, size_t n,
+                           cudaMemcpyKind, cudaStream_t) {
+  std::memcpy(dst, src, n);
+  return 0;
+}
+inline int cudaMemcpy2DAsync(void *dst, size_t dpitch, const void *src,
+                             size_t spitch, size_t width, size_t height,
+                             cudaMemcpyKind, cudaStream_t) {
+  for (size_t r = 0; r < height; ++r)
+    std::memcpy((char *)dst + r * dpitch, (const char *)src + r * spitch,
+                width);
+  return 0;
 }
 
 template <class P>
@@ -145,17 +196,29 @@ void emu_launch(void (*kernel)(P), int grid, int threads, size_t,
   if (threads < 1 || threads > kEmuMaxThreads) return;
   gridDim.x = grid;
   blockDim.x = threads;
-  emu_bar.n = threads;
-  for (int w = 0; w * 32 < threads; ++w)
-    emu_warp_bar[w].n = std::min(32, threads - 32 * w);
-  for (int b = 0; b < grid; ++b) {
-    std::vector<std::thread> lanes;
+  // the blocks at once, or one block's storage used in turn
+  std::vector<EmuBlock> blocks(emu_concurrent ? grid : 1);
+  for (EmuBlock &blk : blocks) {
+    blk.bar.n = threads;
+    for (int w = 0; w * 32 < threads; ++w)
+      blk.warp_bar[w].n = std::min(32, threads - 32 * w);
+  }
+  std::vector<std::thread> lanes;
+  auto start = [&](int b) {
     for (int t = 0; t < threads; ++t)
       lanes.emplace_back([&, b, t] {
+        emu_blk = &blocks[emu_concurrent ? b : 0];
         blockIdx.x = b;
         threadIdx.x = t;
         kernel(p);
       });
-    for (auto &th : lanes) th.join();
+  };
+  for (int b = 0; b < grid; ++b) {
+    start(b);
+    if (!emu_concurrent) {
+      for (auto &th : lanes) th.join();
+      lanes.clear();
+    }
   }
+  for (auto &th : lanes) th.join();
 }

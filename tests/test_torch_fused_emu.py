@@ -1,30 +1,40 @@
-"""The fused stage's CUDA source (csrc/fused_expand.cu: the expansion with
-its order-preserving compaction, and the threshold packed into one
-buffer), compiled by g++ against a CPU stand-in for the CUDA built-ins
-(tests/cuda_emu/cuda_runtime.h: one std::thread per CUDA thread), against
-its plain PyTorch versions, search/fused.py:_expand_core and _thresh_core,
-on the tiny goldens' wave (tests/test_torch_fused.py's set-up):
+"""The fused stage's CUDA source (csrc/fused_expand.cu: the expansion and
+the threshold, each one launch whose compaction is a single pass with a
+decoupled look-back, and the records' copy to the host), compiled by g++
+against a CPU stand-in for the CUDA built-ins (tests/cuda_emu/
+cuda_runtime.h: one std::thread per CUDA thread), against its plain
+PyTorch versions, search/fused.py:_expand_core and _thresh_core, on the
+tiny goldens' wave (tests/test_torch_fused.py's set-up) and on waves made
+from it:
 
 - the expanded hits equal native stage 1 (ops/native/search.cc) and
   _expand_core bit for bit: every int64 column exact, acc_e and hyb_e
   compared as uint64 bits;
-- the threshold's packed records equal _thresh_core's dict exactly: every
-  field in dtype and bits.
+- the threshold's records, copied to the host and unpacked, equal
+  _thresh_core's dict exactly: every field in dtype and bits.
 
-Cases: blocks that start inside a candidate (o > 0); blocks of 1, 31 and
-33 pairs and the whole wave, in CTAs of 64 threads (several tiles, so the
-scan meets several counts) over grids of 1 and 3 CTAs (a CTA walks several
-tiles) and of a CTA per tile; a block with no survivors and one where
-every pair survives; an empty wave. The fused stage through the emulated
+Every kernel case runs in both of the emulator's launch modes: the CTAs
+one after another, and all of a grid's CTAs at once as threads, so that a
+tile's look-back waits on tiles of other CTAs. Cases: blocks that start
+inside a candidate (o > 0); blocks of 1, 31 and 33 pairs and the rest of
+the wave in tiles of 32 and 64 threads over grids of 1 and 3 CTAs (a CTA
+takes several tiles, holding each over the next one's compute), of a CTA
+per tile and of the default (as many as the card holds: 3 here); a block with no survivors and
+one where every pair survives; one candidate over many tiles; tiles over
+many candidates of one pair each, and over candidates of no pair between
+them (longer than a tile's staged slice of the prefix); an empty wave.
+The records' copy in runs (as the pinned ring copies them); the host
+arrays that a wave's blocks fill. The fused stage through the emulated
 kernels equals the staged stream and the JAX package's fused stage. The
 wrappers' input checks raise before either path runs.
 
-This runs the kernels' own arithmetic, indexing, ballots and barriers on a
-machine without a card; the card's comparison is tests/test_torch_gpu.py
-and chip_smoke.py [fused].
+This runs the kernels' own arithmetic, indexing, ballots, barriers and
+look-back on a machine without a card; the card's comparison is
+tests/test_torch_gpu.py and chip_smoke.py [fused].
 """
 
 import copy
+import ctypes
 
 import numpy as np
 import pytest
@@ -49,9 +59,20 @@ EMU_THREADS = 64
 
 
 @pytest.fixture(scope="module")
-def emu_lib(tmp_path_factory):
-    return fe.bind(_emu_build(tmp_path_factory.mktemp("fused_emu"), fe.SRC,
-                              ()))
+def emu_build(tmp_path_factory):
+    lib = fe.bind(_emu_build(tmp_path_factory.mktemp("fused_emu"), fe.SRC,
+                             ()))
+    lib.emu_concurrent_blocks.argtypes = [ctypes.c_int]
+    return lib
+
+
+@pytest.fixture(params=["serial", "concurrent"])
+def emu_lib(emu_build, request):
+    """The emulated source, its CTAs run one after another or all at
+    once."""
+    emu_build.emu_concurrent_blocks(int(request.param == "concurrent"))
+    yield emu_build
+    emu_build.emu_concurrent_blocks(0)
 
 
 def _wave(staged, hyb_e=None):
@@ -61,6 +82,36 @@ def _wave(staged, hyb_e=None):
     if hyb_e is not None:
         cands = [(g, {**c, "hyb_e": np.full_like(c["hyb_e"], hyb_e)})
                  for g, c in cands]
+    return p, cands, fused._WaveBuffers(cands, qpack, dbpack, CPU), qpack, \
+        dbpack
+
+
+def _synthetic(staged, case: str):
+    """A wave made from the tiny wave's packs: `long`, one candidate of 10
+    query x 30 db positions (300 pairs: many tiles); `ones`, the tiny
+    wave's candidates of one pair each (a tile over as many candidates);
+    `gaps`, those with 40 candidates of no pair before each (a tile's
+    slice of the prefix longer than the tile)."""
+    p, cands, _wb, qpack, dbpack = _wave(staged)
+    if case == "long":
+        one = np.ones(1, np.int64)
+        cands = [((0, 0), {"q_sp": 0 * one, "db_sp": 9 * one,
+                           "q_len": 0 * one, "db_len": 29 * one,
+                           "dbseq_id": 6 * one, "hyb_e": -2.5 * one})]
+    else:
+        out = []
+        for g, c in cands:
+            single = ((c["db_sp"] == c["q_sp"])
+                      & (c["db_len"] == c["q_len"]))
+            c = {k: c[k][single] for k in ("q_sp", "db_sp", "q_len",
+                                              "db_len", "dbseq_id", "hyb_e")}
+            if case == "gaps":  # q interval [lo, lo - 1]: no pair
+                c = {k: np.repeat(v, 41) for k, v in c.items()}
+                c["db_sp"] = c["db_sp"] - (np.arange(len(c["q_sp"])) % 41
+                                           != 40)
+            if len(c["q_sp"]):
+                out.append((g, c))
+        cands = out
     return p, cands, fused._WaveBuffers(cands, qpack, dbpack, CPU), qpack, \
         dbpack
 
@@ -83,9 +134,16 @@ def _assert_same_hits(got: dict, ref: dict):
         assert torch.equal(_bits(got[k]), _bits(ref[k])), k
 
 
+def _grid(grid, n: int, threads: int) -> int:
+    """CTAs of a launch: `grid`, or one per tile of n items for "tiles"
+    (0: as many as the card holds, 3 in the emulator)."""
+    return max(1, -(-n // threads)) if grid == "tiles" else grid
+
+
 def _expand(lib, p, wb, qpack, dbpack, o, B, grid=3, threads=EMU_THREADS):
     return fe.expand_call(lib, p.min_accessible_length, p.max_seed_length, o,
-                          B, wb, qpack, dbpack, 0, threads=threads, grid=grid)
+                          B, wb, qpack, dbpack, 0, threads=threads,
+                          grid=_grid(grid, B, threads))
 
 
 def _plain_expand(p, wb, qpack, dbpack, o, B):
@@ -133,20 +191,52 @@ def test_expansion_source_matches_native_stage1(emu_lib, staged):
 
 
 @pytest.mark.parametrize("B", [1, 31, 33, "rest"])
-@pytest.mark.parametrize("grid", [1, 3, 0])
+@pytest.mark.parametrize("grid", [1, 3, "tiles"])
+@pytest.mark.parametrize("threads", [32, 64])
 def test_expansion_source_blocks_match_plain_version(emu_lib, staged, B,
-                                                     grid):
+                                                     grid, threads):
     """Blocks that start one pair inside a candidate of several pairs, of
-    1, 31, 33 pairs and the rest of the wave, in CTAs of 64 threads on 1 or
-    3 CTAs or one per tile: _expand_core's columns bit for bit."""
+    1, 31, 33 pairs and the rest of the wave, in tiles of 32 or 64 threads
+    on 1 or 3 CTAs (each takes several tiles in turn) or one per tile:
+    _expand_core's columns bit for bit."""
     p, _cands, wb, qpack, dbpack = _wave(staged)
     o = _inside(wb)
     n = wb.tot - o if B == "rest" else B
     assert n > 0 and o + n <= wb.tot
-    got = _expand(emu_lib, p, wb, qpack, dbpack, o, n, grid=grid)
+    got = _expand(emu_lib, p, wb, qpack, dbpack, o, n, grid=grid,
+                  threads=threads)
     ref = _plain_expand(p, wb, qpack, dbpack, o, n)
     assert len(ref["pid"]) > 0
     _assert_same_hits(got, ref)
+
+
+@pytest.mark.parametrize("case", ["long", "ones", "gaps"])
+@pytest.mark.parametrize("threads,grid", [(32, 3), (64, 0), (64, "tiles")])
+def test_expansion_and_threshold_sources_on_made_waves(emu_lib, staged,
+                                                       case, threads, grid):
+    """One candidate over many tiles (and a block from inside it), tiles
+    over many candidates of one pair each, and over candidates of no pair
+    between them: _expand_core's columns bit for bit, and the threshold's
+    records _thresh_core's."""
+    p, _cands, wb, qpack, dbpack = _synthetic(staged, case)
+    counts = torch.diff(wb.cum)
+    if case == "long":
+        assert wb.tot == 300 and len(counts) == 1
+    else:
+        assert counts.max() == 1 and wb.tot > 4 * threads
+        assert (case == "gaps") == bool((counts == 0).any())
+    for o in (0, 37):
+        got = _expand(emu_lib, p, wb, qpack, dbpack, o, wb.tot - o,
+                      grid=grid, threads=threads)
+        ref = _plain_expand(p, wb, qpack, dbpack, o, wb.tot - o)
+        assert 0 < len(ref["pid"])
+        _assert_same_hits(got, ref)
+    res = _extend(p, got, qpack, dbpack)
+    _assert_same_records(
+        fe.threshold_call(emu_lib, p.interaction_energy_threshold, res, got,
+                          0, threads=threads,
+                          grid=_grid(grid, len(got["pid"]), threads)),
+        fused._thresh_core(p, res, got))
 
 
 @pytest.mark.parametrize("hyb_e,kept", [(1e3, "none"), (-1e3, "all")])
@@ -183,7 +273,8 @@ def test_expansion_and_threshold_sources_on_an_empty_wave(emu_lib, staged):
         fused._thresh_core(p, res, got))
 
 
-@pytest.mark.parametrize("threads,grid", [(64, 3), (32, 1), (64, 0)])
+@pytest.mark.parametrize("threads,grid", [(64, 3), (32, 1), (64, 0),
+                                          (32, "tiles")])
 def test_threshold_source_matches_plain_version(emu_lib, staged, threads,
                                                 grid):
     """The threshold on the ungapped output of the whole wave and of a
@@ -194,7 +285,8 @@ def test_threshold_source_matches_plain_version(emu_lib, staged, threads,
         hits = _expand(emu_lib, p, wb, qpack, dbpack, lo, n)
         res = _extend(p, hits, qpack, dbpack)
         got = fe.threshold_call(emu_lib, p.interaction_energy_threshold, res,
-                                hits, 0, threads=threads, grid=grid)
+                                hits, 0, threads=threads,
+                                grid=_grid(grid, len(hits["pid"]), threads))
         ref = fused._thresh_core(p, res, hits)
         assert 0 < len(ref["pid"]) < len(hits["pid"])
         _assert_same_records(got, ref)
@@ -221,16 +313,17 @@ def test_threshold_source_keeps_no_hit_or_every_hit(emu_lib, staged, thr):
 def emulated_stage(emu_lib, monkeypatch):
     """fused_stage with the wrappers' CPU path replaced by the emulated
     kernels (blocks of 100 pairs, 2 CTAs of 64 threads)."""
-    def expand(d, max_len, o, B, wb, qpack, dbpack):
-        return fe.expand_call(emu_lib, d, max_len, o, B, wb, qpack, dbpack,
-                              0, threads=EMU_THREADS, grid=2)
+    def expand_start(d, max_len, o, B, wb, qpack, dbpack):
+        return fe.expand_launch(emu_lib, d, max_len, o, B, wb, qpack, dbpack,
+                                0, threads=EMU_THREADS, grid=2)
 
-    def threshold(p, res, hits):
-        return fe.threshold_call(emu_lib, p.interaction_energy_threshold, res,
-                                 hits, 0, threads=EMU_THREADS, grid=2)
+    def threshold_start(p, res, hits):
+        rec = fe.threshold_call(emu_lib, p.interaction_energy_threshold, res,
+                                hits, 0, threads=EMU_THREADS, grid=2)
+        return fe.PendingRecords(len(rec["pid"]), plain=rec)
 
-    monkeypatch.setattr(fe, "expand", expand)
-    monkeypatch.setattr(fe, "threshold", threshold)
+    monkeypatch.setattr(fe, "expand_start", expand_start)
+    monkeypatch.setattr(fe, "threshold_start", threshold_start)
 
     def run(p, cands, qpack, dbpack):
         return fused.fused_stage(p, cands, qpack, dbpack, devices=CPU,
@@ -363,3 +456,57 @@ def test_packed_records_unpack_to_the_stream_dtypes():
     assert all(v.dtype == (np.int64 if k == "pid" else np.float32
                            if k in uop.FLOAT_KEYS else np.int32)
                for k, v in out.items())
+
+
+def test_records_copy_in_runs_equals_one_copy(emu_build, staged):
+    """The C entry point's copy of records r0 .. r0 + m - 1 into a buffer
+    laid out for m (the pinned ring's chunks), run after run, put into
+    HostRecords packed (as the ring does) or unpacked, gives the records of
+    one copy of all; a run past the records is refused."""
+    p, _cands, wb, qpack, dbpack = _wave(staged)
+    hits = _expand(emu_build, p, wb, qpack, dbpack, 0, wb.tot)
+    res = _extend(p, hits, qpack, dbpack)
+    records, scratch = fe.threshold_launch(
+        emu_build, p.interaction_energy_threshold, res, hits, 0,
+        threads=EMU_THREADS, grid=3)
+    n, n2 = len(hits["pid"]), int(scratch[1])
+    whole = fe.threshold_call(emu_build, p.interaction_energy_threshold, res,
+                              hits, 0, threads=EMU_THREADS, grid=3)
+    assert n2 == len(whole["pid"]) > 20
+    sink = fe.HostRecords(n2 + 5)
+    for r0 in range(0, n2, 7):
+        m = min(7, n2 - r0)
+        buf = np.empty(fe.RECORD_BYTES * m, np.uint8)
+        fe._call(emu_build.fused_records_to_host, "copy",
+                 (records.data_ptr(), buf.ctypes.data), (r0, m, n, m))
+        if r0 % 2:
+            sink.put(fe.unpack(buf, m), r0)
+        else:
+            sink.put_packed(buf, m, r0)
+    _assert_same_records(sink.columns(n2), whole)
+    with pytest.raises(RuntimeError):
+        fe._call(emu_build.fused_records_to_host, "copy",
+                 (records.data_ptr(), buf.ctypes.data), (n - 1, 2, n, 2))
+
+
+def test_host_records_fill_in_order_and_give_contiguous_columns():
+    """HostRecords: parts put at their rows give _thresh_core's keys and
+    dtypes, each column a contiguous view of n records."""
+    def part(lo, m):
+        rec = {k: np.arange(lo, lo + m, dtype=np.int32)
+               for k in (*uop.INT_KEYS, *uop.FLOAT_KEYS, "dbseq_id")}
+        rec.update((k, rec[k].astype(np.float32)) for k in uop.FLOAT_KEYS)
+        rec["pid"] = np.arange(lo, lo + m, dtype=np.int64) << 33
+        return rec
+
+    sink = fe.HostRecords(100)
+    sink.put(part(0, 3), 0)
+    sink.put(part(3, 4), 3)
+    out = sink.columns(7)
+    assert list(out) == [*uop.INT_KEYS, *uop.FLOAT_KEYS, "dbseq_id", "pid"]
+    for k, v in out.items():
+        assert v.flags.c_contiguous and len(v) == 7, k
+        assert v.dtype == (np.int64 if k == "pid" else np.float32
+                           if k in uop.FLOAT_KEYS else np.int32), k
+        assert v.tolist() == (np.arange(7) << 33 if k == "pid"
+                              else np.arange(7)).tolist(), k

@@ -765,6 +765,47 @@ def test_fused_kernels_match_plain_versions_on_the_card(tiny_wave):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("threads", [64, 256])
+@pytest.mark.parametrize("grid", [1, 3, 132, 0])
+def test_fused_one_pass_kernels_at_several_grids_on_the_card(tiny_wave,
+                                                             threads, grid):
+    """Both one-pass kernels (a decoupled look-back each) on the card at
+    several grids (1 and 3 CTAs taking many tiles in turn, 132, a CTA per
+    tile) and tiles of 64 and 256 threads, in blocks of 100 pairs and in
+    one block of the whole wave: the expansion's columns bit for bit
+    against _expand_core, the threshold's records against _thresh_core."""
+    dev = _card()
+    p, chunks, queries, cands, _pres = tiny_wave
+    qpack, dbpack = _packs(queries, chunks, dev)
+    wb = fused._WaveBuffers(cands, qpack, dbpack, dev)
+    d, ml = p.min_accessible_length, p.max_seed_length
+    thr = p.interaction_energy_threshold
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = fe._lib()
+    for o, n in [(o, min(100, wb.tot - o)) for o in range(0, wb.tot, 100)] \
+            + [(0, wb.tot)]:
+        got = fe.expand_call(lib, d, ml, o, n, wb, qpack, dbpack, stream,
+                             threads=threads, grid=grid)
+        ref = fused._expand_core(d, ml, o, n, wb, qpack, dbpack)
+        assert list(got) == list(ref)
+        for k in ref:
+            assert torch.equal(_bits(got[k]), _bits(ref[k])), (o, k)
+        res = ungapped_op.ungapped_extend(
+            got["q_sp"], got["db_sp"], got["length"], got["dbseq_start"],
+            got["acc_e"].float(), got["hyb_e"].float(), got["qb"],
+            got["qab"], got["dbb"], got["aoff"], got["coff"], qpack.bufs,
+            dbpack.bufs, d, p.drop_out_length_wo_gap)
+        rec = fe.threshold_call(lib, thr, res, got, stream, threads=threads,
+                                grid=grid)
+        rref = fused._thresh_core(p, res, got)
+        assert list(rec) == list(rref)
+        for k in rref:
+            assert rec[k].dtype == rref[k].dtype, k
+            assert np.array_equal(rec[k].view(np.uint8),
+                                  rref[k].view(np.uint8)), (o, k)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("block", [None, 100])
 def test_fused_stream_equals_staged_oracle_on_the_card(tiny_wave, block):
     """fused_stage on the card (its expansion and threshold kernels; one

@@ -40,12 +40,15 @@ N_HITS = 32
 
 def _emulated_source(src: str) -> str:
     """The kernel source with its launch turned into emu_launch and its
-    dynamic shared memory defined in its namespace."""
+    dynamic shared memory declarations into pointers to the block's own."""
     out, n = re.subn(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), [^>]+>>>\((\w+)\);",
                      r"emu_launch(\1, \2, \3, \4, \5);", src)
     assert n == 1, "the kernel launch was not found"
-    return out.replace("namespace {", "namespace {\nunsigned char "
-                       "smem[kEmuSmem] __attribute__((aligned(16)));", 1)
+    out, n = re.subn(r"extern __shared__ __align__\(16\) unsigned char "
+                     r"smem\[\];", "unsigned char *const smem = emu_smem();",
+                     out)
+    assert n >= 1, "no dynamic shared memory declaration was found"
+    return out
 
 
 def _emu_build(d: Path, src: Path, entry_points) -> ctypes.CDLL:
