@@ -19,9 +19,9 @@ batch that `ris` (or `db`) plans for those sequences (`plan_batches`), as
   (the grid kernel's outside launch, through `outside_inputs`),
   load_outside and outside;
 - load_prob: the probability kernel's library (`ops/access_prob.py:_lib`);
-- probability_pass: the probability kernel's call (`window_probs`);
-- epilogue: the epilogue kernel's call (`accessibility`, as
-  `BatchedRaccess._run_rows` calls it) and the one copy back.
+- energies: the probability kernel's call whose sum launch writes the
+  window energies (`window_energies`, as `BatchedRaccess._run_rows` ends
+  in it) and the one copy back.
 The first pass holds every first use (libraries, the kernels' modules and
 shared-memory attributes, PyTorch's first launches and allocations); the
 second holds none. The kernels' libraries must be built already
@@ -40,7 +40,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 PARTS = ("h2d", "load_grids", "grids", "load_inside", "inside",
          "outside_grids", "load_outside", "outside", "load_prob",
-         "probability_pass", "epilogue")
+         "energies")
 
 
 def child(work: Path, fa: str) -> None:
@@ -106,16 +106,14 @@ def child(work: Path, fa: str) -> None:
                 outs = part("outside", lambda: acs.outside_scan(
                     t, og, m1, n_max, band, dt))
                 part("load_prob", access_prob._lib)
-                pw = part("probability_pass", lambda: access_prob.window_probs(
-                    t, g, s, lens, dmin, n_max, band, dt, ins, outs,
-                    checked=True))
 
-                def epilogue():
-                    out = access_prob.accessibility(*pw, lens, dmin, n_max,
-                                                    kT, checked=True)
+                def energies():
+                    out = access_prob.window_energies(
+                        t, g, s, lens, dmin, n_max, band, dt, ins, outs, kT,
+                        checked=True)
                     return out.cpu().numpy()
 
-                part("epilogue", epilogue)
+                part("energies", energies)
         print(f"[first-use] {name} {fa} {len(batches)} batches ({shapes}) "
               f"{sum(parts.values()):.4f} s: "
               + " ".join(f"{k} {parts[k]:.4f}" for k in PARTS), flush=True)

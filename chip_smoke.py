@@ -10,8 +10,9 @@ Phases (any failure ends the run with a non-zero exit code):
   2. build: the native host library (g++) and the seven CUDA kernel
      sources (nvcc, sm_90a: the gapped extension, the ungapped extension,
      the fused stage's expansion and threshold, the accessibility weight
-     grids, inside scan, outside scan, and the probability pass with the
-     epilogue), all from this checkout, started together;
+     grids, inside scan, outside scan, and the probability pass, whose
+     sum launch writes the window energies, with the epilogue kernel off
+     the main path), all from this checkout, started together;
   3. main path at full size: a seeded workload the size of bench.py's
      (100 queries of ~1,000 nt against 20 db sequences of ~5,000 nt,
      first-order Markov sequences of transcript-like composition) through
@@ -20,12 +21,15 @@ Phases (any failure ends the run with a non-zero exit code):
      the fused path (host seed DFS, the expansion kernel, the ungapped
      kernel, the threshold kernel, host mid, the gapped kernel, host
      finish) and whose accessibility runs the grid kernel's two launches,
-     the two scan kernels, the probability kernel and the epilogue; the
-     kernels' launch counts (the expansion's against one per pair block,
-     the threshold's against the ungapped kernel's) and the calls of the
+     the two scan kernels and the probability kernel, whose sum launch
+     writes the window energies (window_energies); the kernels' launch
+     counts (the energies' against one per batch, the epilogue kernel's
+     against none, the expansion's against one per pair block, the
+     threshold's against the ungapped kernel's) and the calls of the
      plain versions that the kernels replace (make_grids,
-     make_outside_grids, accessibility_from_probabilities, _expand_core,
-     _thresh_core: none), the stage seconds (`ris.fused` split into its
+     make_outside_grids, scan_probabilities,
+     accessibility_from_probabilities, _expand_core, _thresh_core: none),
+     the stage seconds (`ris.fused` split into its
      synchronised sub-stages), the peak device memory, and the mid stage's
      seconds and CPU seconds are read around that run; then the gapped
      kernel's overflow: the hits past max_ext, the host fallback's seconds
@@ -132,14 +136,26 @@ Phases (any failure ends the run with a non-zero exit code):
      launch alone (a CUDA graph of 100 launches, and torch.profiler over
      100 calls), and a
      check that PyTorch divides a tensor by a host scalar on this card as
-     the kernel does (a product with the float32 reciprocal);
-  7b. nosync: window_probabilities and the epilogue on the same db and ris
-     batches, called as BatchedRaccess calls them (the lengths' range
-     checked on the host), under torch.cuda.set_sync_debug_mode("error")
-     from after the codes' and lengths' H2D to before the results' D2H,
-     so that any synchronising call in the five accessibility wrappers
-     fails the run; each accessibility kernel launched once, and the bits
-     of the calls that check the lengths themselves.
+     the kernel does (a product with the float32 reciprocal); then
+     window_energies, the main path's call, whose sum launch writes the
+     energies: bit for bit with accessibility_from_probabilities and with
+     the epilogue kernel on window_probs' p_w and p_w1, within 2e-3
+     kcal/mol of the whole plain chain, with p_w and p_w1 (where asked
+     for) bit for bit with window_probs'; its time through the wrapper
+     against window_probs + accessibility through theirs and against
+     window_probs alone (in turns), and the sum launch's device time
+     without the energies, with them and p_w, p_w1, and with them alone
+     (torch.profiler, in turns); the access_prob record times
+     window_energies, the access_epilogue record the energies' device
+     increment against the bytes they write;
+  7b. nosync: window_probabilities with the epilogue, and batch_energies
+     (the main path's call), on the same db and ris batches, called as
+     BatchedRaccess calls them (the lengths' range checked on the host),
+     under torch.cuda.set_sync_debug_mode("error") from after the codes'
+     and lengths' H2D to before the results' D2H, so that any
+     synchronising call in the six accessibility wrappers fails the run;
+     each accessibility kernel launched as planned, and the bits of the
+     calls that check the lengths themselves.
 The last lines are the kernels' JSON record, the card line from nvidia-smi
 and {"ok": true, "device": {...}}.
 """
@@ -192,7 +208,8 @@ print(json.dumps({"access_grids_inside": access_grids.inside_grids_launches,
                   "access_inside": access_scan.inside_launches,
                   "access_outside": access_scan.outside_launches,
                   "access_prob": access_prob.prob_launches,
-                  "access_epilogue": access_prob.epilogue_launches,
+                  "access_epilogue": access_prob.energies_launches,
+                  "epilogue_kernel": access_prob.epilogue_launches,
                   "fused_expand": fused_expand.expand_launches,
                   "fused_threshold": fused_expand.threshold_launches,
                   "ungapped_extend": ungapped_extend.launches,
@@ -1009,6 +1026,16 @@ def epilogue_bound_ms(B: int, n_max: int, item: int):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def energies_bound_ms(B: int, n_max: int):
+    """Least time the card could take for the window energies' work inside
+    the probability pass's sum launch (csrc/access_prob.cu:
+    sum_kernel<T, true>), by bytes: p_w and p_w1 stay in registers, so only
+    the lengths are read once, and acc and cond written once (float32).
+    Returns (bound ms, "bytes")."""
+    nbytes = 8 * B + 2 * B * n_max * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
 def grids_diff(got, ref):
     """(the planes that differ but the seed, the seed's largest distance in
     ulps, the largest |got - ref| over the float planes) of two grids
@@ -1228,13 +1255,15 @@ def main() -> int:
                                   for k, (so, t) in built.items()),
           flush=True)
 
-    # the accessibility kernels' launch counters, in the order of a batch
+    # the accessibility kernels' launch counters, in the order of a batch;
+    # the window energies' work is the sum launches that carry it (the
+    # epilogue kernel, off the main path, has a counter of its own)
     access_counters = {"access_grids_inside": (ag, "inside_grids_launches"),
                        "access_inside": (acs, "inside_launches"),
                        "access_grids_outside": (ag, "outside_grids_launches"),
                        "access_outside": (acs, "outside_launches"),
                        "access_prob": (ap, "prob_launches"),
-                       "access_epilogue": (ap, "epilogue_launches")}
+                       "access_epilogue": (ap, "energies_launches")}
 
     def access_counts() -> dict:
         return {k: getattr(m, a) for k, (m, a) in access_counters.items()}
@@ -1242,6 +1271,7 @@ def main() -> int:
     def zero_access_counts() -> None:
         for m, a in access_counters.values():
             setattr(m, a, 0)
+        ap.epilogue_launches = 0
 
     # the fused stage's kernels' launch counters
     def fused_counts() -> dict:
@@ -1266,6 +1296,7 @@ def main() -> int:
 
     plain_fns = [(m, n, *recording(m, n)) for m, n in (
         (batched, "make_grids"), (batched, "make_outside_grids"),
+        (batched, "scan_probabilities"),
         (batched, "accessibility_from_probabilities"),
         (fused, "_expand_core"), (fused, "_thresh_core"))]
 
@@ -1382,6 +1413,7 @@ def main() -> int:
     t_ris = time.perf_counter() - t0
     launches, ulaunches = gapped_sweep.launches, uop.launches
     alaunches = access_counts()
+    epi_main = ap.epilogue_launches
     flaunches = fused_counts()
     plain_main = dict(plain_calls)
     stages = prof.snapshot()
@@ -1407,6 +1439,8 @@ def main() -> int:
         check(n == len(access_batches),
               f"{name} launched {n} times for {len(access_batches)} "
               "accessibility batches")
+    check(epi_main == 0, f"the epilogue kernel launched {epi_main} times on "
+          "the main path, whose sum launches write the energies")
     check(0 < n_db_batches < len(access_batches),
           "db or ris ran no accessibility batch")
     check(not plain_main, f"plain versions ran on the main path: "
@@ -1433,7 +1467,9 @@ def main() -> int:
           f"gapped {launches}, "
           + ", ".join(f"{k} {n}" for k, n in {**flaunches,
                                                **alaunches}.items())
-          + f" ({n_db_batches} db + {len(access_batches) - n_db_batches} ris "
+          + f" (access_epilogue: the sum launches that write the energies), "
+          f"epilogue_kernel {epi_main} ({n_db_batches} db + "
+          f"{len(access_batches) - n_db_batches} ris "
           f"batches; {len(wave_pairs)} wave(s) of {wave_pairs} pairs in "
           f"blocks of {main_block}, {fused_plan} planned); plain versions "
           f"called on the main path: "
@@ -2044,6 +2080,9 @@ def main() -> int:
         for i, c in enumerate(counts):
             check(all(c[k] > 0 for k in names), f"two-process {step}: "
                   f"process {i} launched no {[k for k in names if not c[k]]}")
+            check(c["epilogue_kernel"] == 0, f"two-process {step}: process "
+                  f"{i} launched the epilogue kernel {c['epilogue_kernel']} "
+                  "times")
     check(all(v == 0 for v in diffs.values()),
           f"two-process db files differ from one process's: {diffs}")
     check(n_diff == 0, f"two-process ris body differs on {n_diff} lines")
@@ -2095,6 +2134,7 @@ def main() -> int:
         plain_md = dict(plain_calls)
         record_plain_calls(False)
     got_launches = {**access_counts(), **fused_counts(),
+                    "epilogue_kernel": ap.epilogue_launches,
                     "ungapped_extend": uop.launches,
                     "gapped_extend": gapped_sweep.launches}
 
@@ -2108,6 +2148,7 @@ def main() -> int:
     n_blocks = sum(parts(min(block, n - o)) for n in sizes["pairs"]
                    for o in range(0, n, block))
     plan = {**dict.fromkeys(access_counters, n_access),
+            "epilogue_kernel": 0,
             **dict.fromkeys(("fused_expand", "fused_threshold",
                              "ungapped_extend"), n_blocks),
             "gapped_extend": sum(2 * parts(min(gcap, n - o))
@@ -2298,6 +2339,84 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, s0.elapsed_time(s1)
 
+    EN_REPS = 50  # calls over which the sum launch alone is averaged
+    EN_ROUNDS = 3  # rounds of those, in turns
+
+    def hold_energies(label, pargs, kT, pw_k, ep_k, ep_p, e_p):
+        """window_energies (the main path's call: the probability pass
+        whose sum launch writes the window energies) on the inputs of
+        window_probs (`pargs`, its p_w and p_w1 `pw_k`): bit for bit with
+        the epilogue kernel's output (`ep_k`) and the plain epilogue's
+        (`ep_p`) on pw_k, p_w and p_w1 when asked for bit for bit with
+        pw_k, within ACCESS_TOL of the plain chain's energies (`e_p`);
+        then timed: the call through its wrapper against window_probs +
+        accessibility and window_probs alone (checked lengths, in turns),
+        and the sum launch alone (torch.profiler, in turns) without the
+        energies, with them and p_w, p_w1 (the energies' own work), and
+        with them alone (the main path's form)."""
+        lens, d, n_max, dt = pargs[3], pargs[4], pargs[5], pargs[7]
+        en_k = ap.window_energies(*pargs, kT, checked=True)
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = ap._fn(dt, "access_prob_energies")
+
+        def held():
+            return ap._energies_call(fn, *pargs[1:], kT, stream, probs=True)
+
+        e_a, p_w, p_w1 = held()
+        torch.cuda.synchronize()
+        bits = (lambda x: x.view(torch.int32))
+        check(torch.equal(bits(en_k), bits(ep_p))
+              and torch.equal(bits(en_k), bits(ep_k)),
+              f"window_energies differs from the epilogue on window_probs' "
+              f"p_w and p_w1 by {float((en_k - ep_p).abs().max())} kcal/mol "
+              f"({label})")
+        check(torch.equal(bits(e_a), bits(en_k))
+              and torch.equal(p_w, pw_k[0]) and torch.equal(p_w1, pw_k[1]),
+              f"window_energies with p_w and p_w1 asked for differs "
+              f"({label})")
+        chain = energy_diff(en_k, e_p)
+        check(chain <= ACCESS_TOL, f"window_energies differs from the plain "
+              f"chain by {chain} kcal/mol ({label})")
+
+        def fused():
+            return ap.window_energies(*pargs, kT, checked=True)
+
+        def probs():
+            return ap.window_probs(*pargs, checked=True)
+
+        def two():
+            return ap.accessibility(*probs(), lens, d, n_max, kT,
+                                    checked=True)
+
+        order = (two, fused, probs, probs, fused, two)
+        times = [cuda_ms(f, 10) for f in order]
+        ms = {f.__name__: (times[i] + times[-1 - i]) / 2
+              for i, f in enumerate(order[:3])}
+
+        def sum_ms(f):
+            by = device_ms_by_kernel(lambda: [f() for _ in range(EN_REPS)],
+                                     ("sum_kernel", "window_kernel"))
+            return by["sum_kernel"] / EN_REPS if "sum_kernel" in by else None
+
+        # EN_ROUNDS rounds in turns, each without, with p_w, main, main,
+        # with p_w, without: the increment is a few tenths of a
+        # microsecond on a ~0.2 ms launch
+        order = (probs, held, fused, fused, held, probs) * EN_ROUNDS
+        got = {}
+        for f in order:
+            got.setdefault(f.__name__, []).append(sum_ms(f))
+        sums = {k: (None if None in v else sum(v) / len(v))
+                for k, v in got.items()}
+
+        def less(k):
+            return (None if None in (sums[k], sums["probs"])
+                    else sums[k] - sums["probs"])
+
+        return dict(
+            fused=ms["fused"], two=ms["two"], probs=ms["probs"],
+            ms=less("held"), inc=less("held"), net=less("fused"), sums=sums, chain=chain,
+            err=float((en_k - ep_p).abs().max()))
+
     def hold_access(label, codes, lengths):
         """The accessibility kernels against their plain versions on one
         batch of the main path, float32 as it runs: the grid kernel's two
@@ -2390,10 +2509,16 @@ def main() -> int:
             # inputs the main path gives it, against scan_probabilities
             pargs = (t, g_k, s, lens, d, n_max, band, dt, ins_k, chain)
             pw_k = ap.window_probs(*pargs)
-            pw_p, plain_prob = timed_once(
-                lambda: batched.scan_probabilities(*pargs))
-            rel_prob = max_rel(pw_k, pw_p)
             kT = batched._linmodel(w).sp.kT
+
+            def plain_pass():
+                # window_energies' plain versions, as it runs on the CPU
+                q = batched.scan_probabilities(*pargs)
+                return q, torch.stack(batched.accessibility_from_probabilities(
+                    *q, lens, d, n_max, kT))
+
+            (pw_p, _), plain_prob = timed_once(plain_pass)
+            rel_prob = max_rel(pw_k, pw_p)
             de_prob = energy_diff(
                 batched.accessibility_from_probabilities(*pw_k, lens, d,
                                                          n_max, kT),
@@ -2440,10 +2565,15 @@ def main() -> int:
                   f"probability kernel differs by {rel_prob} relative, "
                   f"{de_prob} kcal/mol (three kernels against the plain "
                   f"chain: {de_three}) ({label})")
-            ms_prob = cuda_ms(lambda: ap.window_probs(*pargs), 5)
-            by_kernel = device_ms_by_kernel(
-                lambda: ap.window_probs(*pargs),
-                ("window_kernel", "sum_kernel"))
+            # the pass as the main path calls it: window_energies, the
+            # lengths checked on the host
+            ms_prob = cuda_ms(
+                lambda: ap.window_energies(*pargs, kT, checked=True), 5)
+            # over 20 calls: the profiler has seen no device time in one
+            by_kernel = {k: v / 20 for k, v in device_ms_by_kernel(
+                lambda: [ap.window_energies(*pargs, kT, checked=True)
+                         for _ in range(20)],
+                ("window_kernel", "sum_kernel")).items()}
             # the window kernel's two instantiations, stem rows staged in
             # shared memory (the wrapper's) or read from device memory,
             # timed in turns: staged, unstaged, unstaged, staged
@@ -2459,11 +2589,14 @@ def main() -> int:
                   f"the staged and unstaged window kernels differ ({label})")
             ms_st = [cuda_ms(window(x), 5) for x in (True, False, False,
                                                      True)]
+            en = hold_energies(label, pargs, kT, pw_k, ep_k, ep_p, e_p)
         n1 = n_max + 1
         recs = {}
         bound, bound_by = prob_bound_ms(B, n1, band, d, 4)
         print(f"[kernel] access_prob {label} float32 B={B} columns={n1} "
-              f"w={d}: {ms_prob:.4f} ms, plain {plain_prob:.2f} ms, bound "
+              f"w={d}: window_energies (the main path's call) {ms_prob:.4f} "
+              f"ms, plain (scan_probabilities, then "
+              f"accessibility_from_probabilities) {plain_prob:.2f} ms, bound "
               f"{bound:.6f} ms ({bound_by}, "
               f"{prob_ops_per_row(n1, band, d, batched.ML) / n1:.0f} "
               f"operations per column), {ms_prob / bound:.1f}x bound, max "
@@ -2471,7 +2604,7 @@ def main() -> int:
               f"{de_prob:.3g} kcal/mol (all three kernels against the plain "
               f"chain: {de_three:.3g}) {tag}", flush=True)
         print(f"[kernel] access_prob {label}: device ms by kernel of one "
-              "call (torch.profiler): " + (", ".join(
+              "window_energies call (torch.profiler, mean of 20): " + (", ".join(
                   f"{k} {v:.4f}"
                   for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1]))
                   or "not measured (no device time seen)") + f" {tag}",
@@ -2507,9 +2640,46 @@ def main() -> int:
               f"library none {tag}", flush=True)
         check(recip_same, "PyTorch's division by a host scalar is not the "
               "product with its float32 reciprocal on this card")
-        recs["access_epilogue"] = dict(ms=ms_ep, plain_ms=plain_ep,
+        # the energies' work inside the sum launch: its device increment
+        # (the sum launch writing the energies and p_w, p_w1 less the one
+        # writing p_w, p_w1 alone), bound by its writes alone
+        bound, bound_by = energies_bound_ms(B, n_max)
+        if en["ms"] is None:
+            en["ms"], how = en["fused"] - en["probs"], (
+                "window_energies less window_probs through their wrappers "
+                "(the profiler saw no device time)")
+        else:
+            how = "the sum launch's device increment (torch.profiler)"
+        recs["access_epilogue"] = dict(ms=en["ms"], plain_ms=plain_ep,
                                        bound_ms=bound, bound_by=bound_by,
-                                       err=0.0)
+                                       err=en["err"])
+
+        def fmt(v):
+            return "not measured" if v is None else f"{v:.5f} ms"
+
+        print(f"[kernel] access_energies {label} float32 B={B} columns="
+              f"{n_max} w={d}: window_energies (the pass writing the "
+              f"energies) {en['fused']:.4f} ms through its wrapper as the "
+              f"main path calls it, against window_probs + accessibility "
+              f"through theirs {en['two']:.4f} ms "
+              f"({en['two'] - en['fused']:+.4f} ms saved) and window_probs "
+              f"alone {en['probs']:.4f} ms (in turns: two, fused, probs, "
+              f"probs, fused, two); the sum launch alone (torch.profiler, "
+              f"mean of {EN_REPS} calls, in turns: without, with p_w, "
+              f"main, main, with p_w, without) without the energies "
+              f"{fmt(en['sums']['probs'])}, with the energies and p_w, p_w1 "
+              f"{fmt(en['sums']['held'])}, with the energies alone (the "
+              f"main path's form) {fmt(en['sums']['fused'])} ({EN_ROUNDS} "
+              f"rounds); the "
+              f"energies' increment {fmt(en['inc'])} "
+              f"with p_w, p_w1 kept, {fmt(en['net'])} net of the p_w, p_w1 "
+              f"stores dropped; the record's ms {en['ms']:.5f} ({how}), "
+              f"bound {bound:.6f} ms ({bound_by}: acc and cond written, "
+              f"the lengths read), {en['ms'] / bound:.1f}x bound; acc and "
+              f"cond bit for bit with accessibility_from_probabilities and "
+              f"the epilogue kernel on window_probs' p_w and p_w1, and p_w, "
+              f"p_w1 when asked; max |diff| against the whole plain chain "
+              f"{en['chain']:.3g} kcal/mol {tag}", flush=True)
         for name, ms, ms_rc, plain, err, inside in (
                 ("access_grids_inside", ms_gi, ms_gi_rc, plain_gi, err_gi,
                  True),
@@ -2557,13 +2727,15 @@ def main() -> int:
 
     # ---- 7b. no host sync in the accessibility wrappers ------------------
     def nosync(label, codes, lengths):
-        """window_probabilities on one batch of the main path, called as
-        BatchedRaccess calls it (the lengths checked on the host), with
+        """batch_energies (the main path's call) and window_probabilities
+        with the epilogue kernel on one batch of the main path, called as
+        BatchedRaccess calls them (the lengths checked on the host), with
         every synchronising call of PyTorch an error from after the codes'
-        and lengths' H2D to before the D2H of the results: the four
-        wrappers read nothing back from the card. Its bits against the
-        call that checks the lengths itself; each accessibility kernel
-        launched once. A failure here is never caught."""
+        and lengths' H2D to before the D2H of the results: the six
+        wrappers read nothing back from the card. Their bits against the
+        calls that check the lengths themselves, and against each other;
+        each accessibility kernel launched as planned. A failure here is
+        never caught."""
         dt, w, d = torch.float32, p.maximal_span, p.min_accessible_length
         B, n_max = codes.shape
         s_np = np.zeros((B, n_max + batched.ML + 4), np.int64)
@@ -2572,7 +2744,7 @@ def main() -> int:
         lens = torch.as_tensor(lengths.astype(np.int64), device=dev)
         t = batched.make_tables(w, dt, dev)
         kT = float(batched._linmodel(w).sp.kT)
-        before = access_counts()
+        before = {**access_counts(), "epilogue_kernel": ap.epilogue_launches}
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -2580,24 +2752,35 @@ def main() -> int:
                 got = batched.window_probabilities(w, d, n_max, dt, s, lens,
                                                    t, checked=True)
                 got = (*got, ap.accessibility(*got, lens, d, n_max, kT,
-                                              checked=True))
+                                              checked=True),
+                       batched.batch_energies(w, d, n_max, dt, s, lens, kT,
+                                              t, checked=True))
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        ran = {k: n - before[k] for k, n in access_counts().items()}
+        after = {**access_counts(), "epilogue_kernel": ap.epilogue_launches}
+        ran = {k: n - before[k] for k, n in after.items()}
         with torch.no_grad():
             ref = batched.window_probabilities(w, d, n_max, dt, s, lens, t)
-            ref = (*ref, ap.accessibility(*ref, lens, d, n_max, kT))
+            ref = (*ref, ap.accessibility(*ref, lens, d, n_max, kT),
+                   batched.batch_energies(w, d, n_max, dt, s, lens, kT, t))
         same = all(torch.equal(a, b) for a, b in zip(got, ref))
-        check(all(n == 1 for n in ran.values()),
-              f"[nosync] {label}: accessibility launches {ran}, not one each")
-        check(same, f"[nosync] {label}: p_w, p_w1 or the energies differ "
-              "from the calls that check the lengths themselves")
-        print(f"[nosync] {label} B={B} columns={n_max + 1}: "
-              "window_probabilities and the epilogue (checked lengths) "
-              "under torch.cuda.set_sync_debug_mode('error'), no "
+        # grids, scans and the pass twice; the energies' sum launch and the
+        # epilogue kernel once each
+        want = {**dict.fromkeys(access_counters, 2), "access_epilogue": 1,
+                "epilogue_kernel": 1}
+        check(ran == want, f"[nosync] {label}: accessibility launches {ran}, "
+              f"not {want}")
+        check(same and torch.equal(got[2], got[3]),
+              f"[nosync] {label}: p_w, p_w1 or the energies differ from the "
+              "calls that check the lengths themselves, or the two forms' "
+              "energies differ")
+        print(f"[nosync] {label} B={B} columns={n_max + 1}: batch_energies, "
+              "and window_probabilities with the epilogue kernel (checked "
+              "lengths) under torch.cuda.set_sync_debug_mode('error'), no "
               f"synchronising call; launches {json.dumps(ran)}; p_w, p_w1 "
               f"and the energies bit for bit with the calls that check the "
-              f"lengths themselves {tag}", flush=True)
+              f"lengths themselves, and the two forms' energies bit for bit "
+              f"{tag}", flush=True)
 
     nosync("main-path db batch", *access_batches[0])
     nosync("main-path ris batch", *access_batches[n_db_batches])

@@ -23,8 +23,10 @@ Layout: every per-column weight grid and every stacked state is
   accumulation a triangular matmul;
 - ``probability_pass``: window probabilities, vectorized over the grid.
   On ``cuda`` it runs, with ``make_prob_grids`` and the sum of its terms
-  (``scan_probabilities``), as a hand-written kernel (ops/access_prob.py);
-  the functions here are its plain version.
+  (``scan_probabilities``) and the window energies
+  (``accessibility_from_probabilities``), as a hand-written kernel
+  (ops/access_prob.py: the energies written by its last launch); the
+  functions here are its plain version.
 
 Every table value that the formulation rounds to float32 is rounded here
 at the same place, so float64 runs agree with the float32-table semantics
@@ -953,6 +955,47 @@ def scan_probabilities(t: Tables, g: Grids, s_padded, lengths,
     return ext_w + hp_b + bi_b + mp_w, ext_w1 + hp_c + bi_c + mp_w1
 
 
+def _scanned(w_span: int, n_max: int, dtype, s_padded: torch.Tensor,
+             lengths: torch.Tensor, t: Tables | None):
+    """The weight grids and both column scans of a batch whose lengths are
+    checked: (t, g, ins, outs), the inputs of the probability pass."""
+    # imported here: the ops modules import this module
+    from priblast_tpu_torch.ops import access_grids, access_scan
+
+    band = w_span + 2
+    if t is None:
+        t = make_tables(w_span, dtype=dtype, device=s_padded.device)
+    g = access_grids.inside_grids(t, s_padded, lengths, n_max, band, dtype,
+                                  checked=True)
+    ins = access_scan.inside_scan(t, g, lengths, n_max, band, dtype,
+                                  checked=True)
+    og, multi1 = outside_inputs(t, s_padded, lengths, n_max, band, dtype, g,
+                                ins, checked=True)
+    outs = access_scan.outside_scan(t, og, multi1, n_max, band, dtype)
+    return t, g, ins, outs
+
+
+def _checked_lengths(s_padded, lengths, n_max: int, checked: bool):
+    """lengths as int64, their range checked here (a read from the device)
+    unless the caller has `checked` it on the host."""
+    # imported here: the ops modules import this module
+    from priblast_tpu_torch.ops import access_scan
+
+    lengths = lengths.to(torch.int64)
+    if not checked:
+        access_scan._check_lengths(lengths, n_max, s_padded.shape[0],
+                                   s_padded.device)
+    return lengths
+
+
+def _two_rows(s_padded, lengths):
+    """A one-row batch as two copies of its row: the plain versions'
+    matmuls and einsums sum in another order for a single row (a
+    matrix-vector product), and a row must get the same bits in any batch
+    (the shards of a split batch may hold one row)."""
+    return s_padded.expand(2, -1).contiguous(), lengths.expand(2).contiguous()
+
+
 def window_probabilities(w_span: int, min_acc_len: int, n_max: int, dtype,
                          s_padded: torch.Tensor, lengths: torch.Tensor,
                          t: Tables | None = None, *, checked: bool = False):
@@ -965,37 +1008,43 @@ def window_probabilities(w_span: int, min_acc_len: int, n_max: int, dtype,
     where not given. The lengths must lie in [0, n_max]: unless the caller
     has `checked` that on the host, it is checked here, once, before any
     grid is built (a read from the device); the wrappers then read
-    none."""
+    none. Off the main path, which takes batch_energies."""
     # imported here: the ops modules import this module
-    from priblast_tpu_torch.ops import access_grids, access_prob, access_scan
+    from priblast_tpu_torch.ops import access_prob
 
-    lengths = lengths.to(torch.int64)
-    if not checked:
-        access_scan._check_lengths(lengths, n_max, s_padded.shape[0],
-                                   s_padded.device)
+    lengths = _checked_lengths(s_padded, lengths, n_max, checked)
     if s_padded.shape[0] == 1:
-        # a one-row batch runs as two copies of its row: the plain
-        # versions' matmuls and einsums sum in another order for a single
-        # row (a matrix-vector product), and a row must get the same bits
-        # in any batch (the shards of a split batch may hold one row)
         p_w, p_w1 = window_probabilities(
-            w_span, min_acc_len, n_max, dtype,
-            s_padded.expand(2, -1).contiguous(),
-            lengths.expand(2).contiguous(), t, checked=True)
+            w_span, min_acc_len, n_max, dtype, *_two_rows(s_padded, lengths),
+            t, checked=True)
         return p_w[:, :1].contiguous(), p_w1[:, :1].contiguous()
-    band = w_span + 2
-    if t is None:
-        t = make_tables(w_span, dtype=dtype, device=s_padded.device)
-    g = access_grids.inside_grids(t, s_padded, lengths, n_max, band, dtype,
-                                  checked=True)
-    ins = access_scan.inside_scan(t, g, lengths, n_max, band, dtype,
-                                  checked=True)
-    og, multi1 = outside_inputs(t, s_padded, lengths, n_max, band, dtype, g,
-                                ins, checked=True)
-    outs = access_scan.outside_scan(t, og, multi1, n_max, band, dtype)
+    t, g, ins, outs = _scanned(w_span, n_max, dtype, s_padded, lengths, t)
     return access_prob.window_probs(t, g, s_padded, lengths, min_acc_len,
-                                    n_max, band, dtype, ins, outs,
+                                    n_max, w_span + 2, dtype, ins, outs,
                                     checked=True)
+
+
+def batch_energies(w_span: int, min_acc_len: int, n_max: int, dtype,
+                   s_padded: torch.Tensor, lengths: torch.Tensor, kT: float,
+                   t: Tables | None = None, *, checked: bool = False):
+    """The window energies of accessibility_from_probabilities on the
+    probabilities of window_probabilities, as one [2, B, n_max] float32
+    tensor (acc, then cond), through the same kernels (their plain
+    versions on the CPU) but for the last: ops/access_prob.py:
+    window_energies, whose sum launch writes the energies itself. The
+    arguments and the lengths' check as window_probabilities'."""
+    # imported here: the ops modules import this module
+    from priblast_tpu_torch.ops import access_prob
+
+    lengths = _checked_lengths(s_padded, lengths, n_max, checked)
+    if s_padded.shape[0] == 1:
+        return batch_energies(w_span, min_acc_len, n_max, dtype,
+                              *_two_rows(s_padded, lengths), kT, t,
+                              checked=True)[:, :1].contiguous()
+    t, g, ins, outs = _scanned(w_span, n_max, dtype, s_padded, lengths, t)
+    return access_prob.window_energies(t, g, s_padded, lengths, min_acc_len,
+                                       n_max, w_span + 2, dtype, ins, outs,
+                                       kT, checked=True)
 
 
 def accessibility_from_probabilities(p_w, p_w1, lengths, w: int,
@@ -1066,17 +1115,11 @@ class BatchedRaccess:
                 np.concatenate([c for _, c in parts]))
 
     def _run_rows(self, dev, s: np.ndarray, lens: np.ndarray, n_max: int):
-        # imported here: the ops modules import this module
-        from priblast_tpu_torch.ops import access_prob
-
         s = torch.as_tensor(s, device=dev)
         lens = torch.as_tensor(lens, device=dev)
         with torch.no_grad():
-            p_w, p_w1 = window_probabilities(self.w, self.d, n_max,
-                                             self.dtype, s, lens,
-                                             self._tables[dev], checked=True)
             # acc and cond as one [2, B, n_max] tensor: one copy back
-            out = access_prob.accessibility(p_w, p_w1, lens, self.d, n_max,
-                                            self.kT, checked=True)
+            out = batch_energies(self.w, self.d, n_max, self.dtype, s, lens,
+                                 self.kT, self._tables[dev], checked=True)
         out = out.cpu().numpy()
         return out[0], out[1]

@@ -84,13 +84,21 @@
 // and the int11 / int21 / int22 / stack tables (read through L1), so the
 // kernel never reads a weight grid.
 //
-// A third kernel, epilogue_kernel (C below), turns p_w and p_w1 into the
-// window energies behind its own entry points.
+// The window energies (C below) are the last step of the sum launch on
+// the main path: a compile-time variant of sum_kernel turns each window's
+// p_w and p_w1, still in registers, into acc and cond, so they take no
+// launch of their own and p_w / p_w1 never go through device memory. A
+// third kernel, epilogue_kernel, computes the same energies from p_w and
+// p_w1 given in device memory (the form on given probabilities), with the
+// same device function, so both give the same bits.
 //
 // C entry points (ctypes): access_prob_f32, access_prob_f64 (the two
-// launches above), access_epilogue_f32, access_epilogue_f64 (the
-// epilogue). They launch on the given stream and return
-// cudaGetLastError().
+// launches above, writing p_w and p_w1); access_prob_energies_f32,
+// access_prob_energies_f64 (the same two launches, the sum launch also
+// writing the window energies, and p_w / p_w1 only where their pointers
+// are not null); access_epilogue_f32, access_epilogue_f64 (the epilogue
+// kernel). They launch on the given stream and return cudaGetLastError();
+// a refused argument returns a CUDA error code and launches nothing.
 
 #include <cuda_runtime.h>
 
@@ -116,7 +124,10 @@ struct Params {
   const T *KI, *Kb;         // KI[u1][u2] (ML+1)^2, Kb[u] ML+1, in T
   const int *bp, *rtbp;     // 5 x 5
   const float *stack, *i11, *i21, *i22;
-  T *scr, *p_w, *p_w1;
+  T *scr, *p_w, *p_w1;      // p_w, p_w1 may be null where energies are written
+  const int64_t *lengths;   // [B], where energies are written
+  float *acc, *cond;        // [B][N] each, where energies are written
+  float kT;                 // a float32 value, where energies are written
   long long n1, B, S;
   int band, w, tile, nss, nu, nt, S2;
   T sig[5];                 // sigma^-k, k = 0..4, each rounded to T
@@ -599,7 +610,58 @@ __global__ void __launch_bounds__(kWindowMaxThreads)
 #endif
 }
 
+// C. The window energies from p_w and p_w1, as
+// accessibility/batched.py:accessibility_from_probabilities computes them
+// (the JAX package's priblast_tpu/accessibility/batched.py:1370-1390, the
+// end of _run_batch_impl), in one device function that the sum launch and
+// epilogue_kernel both call. For the window start x = j + 1 of row b:
+// acc[b][j] = -kT log p_w[x] / 1000 where x + w - 1 <= n_b, else 0; the
+// conditional -kT log p_w1[x] / 1000 - acc where x + w <= n_b, else 0,
+// goes to cond[b][j + w] (the plain version's column shift, without a
+// copy), and cond[b][j] = 0 for j < w: every element of acc and cond once
+// over j = 0 .. N-1. Each log is logf of (float)max(p, FLT_MIN), the
+// libdevice function that torch.log calls on the card for float32; the
+// products in float32 as the plain version orders them. Its division by
+// 1000 is, on the card, PyTorch's division of a tensor by a host scalar: a
+// product with the scalar's float32 reciprocal (chip_smoke.py [kernel]
+// checks that the two agree on the card, and counts the values where an
+// IEEE division differs), so the kernels multiply by the same reciprocal
+// and match the plain version bit for bit there; on the CPU, where PyTorch
+// divides, within an ulp. Bound: bytes (p_w and p_w1 read, acc and cond
+// written); inside the sum launch only the writes remain.
+constexpr float kInv1000 = 1.0f / 1000.0f;  // rounded as PyTorch rounds it
+
+// torch.log(torch.clamp(p, min=FLT_MIN).to(float32)); a NaN stays NaN
 template <typename T>
+__device__ __forceinline__ float log_clamped(T p) {
+  const T tiny = T(FLT_MIN);
+  return logf((float)(p < tiny ? tiny : p));
+}
+
+// The energies of window start x = j + 1 (0 <= j < N) of row b, whose
+// length is n, from its p_w and p_w1, into acc and cond ([B][N] each)
+template <typename T>
+__device__ __forceinline__ void window_energies(T pw, T pw1, long long b,
+                                                long long j, long long n,
+                                                long long N, int w, float kT,
+                                                float *acc, float *cond) {
+  const long long x = j + 1, row = b * N;
+  float a = 0.0f, c = 0.0f;
+  if (x + w - 1 <= n) a = (-log_clamped(pw) * kT) * kInv1000;
+  if (x + w <= n) c = (-log_clamped(pw1) * kT) * kInv1000 - a;
+  acc[row + j] = a;
+  if (j + w < N) cond[row + j + w] = c;
+  if (j < w) cond[row + j] = 0.0f;
+}
+
+// kEnergies = false writes p_w and p_w1, as it did before the energies
+// moved here; kEnergies = true also writes the window energies of every x
+// in [1, N] straight from the registers (p_w and p_w1 only where their
+// pointers are not null). A warp's stores fall on min(32, B) rows of acc
+// and cond, as the threads run b fastest; a form that staged the block's
+// p_w and p_w1 in shared memory and wrote runs along x was slower on the
+// card (PERF.md, PR 18).
+template <typename T, bool kEnergies>
 __global__ void __launch_bounds__(kMaxThreads) sum_kernel(const Params<T> p) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long B = p.B, N = p.n1 - 1;
@@ -665,30 +727,19 @@ __global__ void __launch_bounds__(kMaxThreads) sum_kernel(const Params<T> p) {
     pw = ext[0] + hb + bib + mp[0];
     pw1 = ext[1] + hc + bic + mp[1];
   }
-  p.p_w[x * B + b] = pw;
-  p.p_w1[x * B + b] = pw1;
+  if (!kEnergies || p.p_w != nullptr) {
+    p.p_w[x * B + b] = pw;
+    p.p_w1[x * B + b] = pw1;
+  }
+  if (kEnergies && x >= 1 && x <= N)
+    window_energies(pw, pw1, b, x - 1, p.lengths[b], N, p.w, p.kT, p.acc,
+                    p.cond);
 }
 
-// C. epilogue_kernel: the window energies from p_w and p_w1, as
-// accessibility/batched.py:accessibility_from_probabilities computes them
-// (the JAX package's priblast_tpu/accessibility/batched.py:1370-1390, the
-// end of _run_batch_impl): a thread per output element (b, j), j fastest,
-// so that the writes of a row coalesce. For the window start x = j + 1:
-// acc[b][j] = -kT log p_w[x] / 1000 where x + w - 1 <= n_b, else 0; the
-// conditional -kT log p_w1[x] / 1000 - acc where x + w <= n_b, else 0,
-// goes to cond[b][j + w] (the plain version's column shift, without a
-// copy), and cond[b][j] = 0 for j < w. Each log is logf of
-// (float)max(p, FLT_MIN), the libdevice function that torch.log calls on
-// the card for float32; the products in float32 as the plain version
-// orders them. Its division by 1000 is, on the card, PyTorch's division
-// of a tensor by a host scalar: a product with the scalar's float32
-// reciprocal (chip_smoke.py [kernel] checks that the two agree on the card,
-// and counts the values where an IEEE division differs), so the kernel
-// multiplies by the same reciprocal and matches the plain version bit for
-// bit there; on the CPU, where PyTorch divides, within an ulp. Bound:
-// bytes (two reads and two writes per element).
-constexpr float kInv1000 = 1.0f / 1000.0f;  // rounded as PyTorch rounds it
-
+// epilogue_kernel: the window energies from p_w and p_w1 in device memory
+// (the form on given probabilities; the main path computes them in the sum
+// launch): a thread per output element (b, j), j fastest, so that the
+// writes of a row coalesce.
 template <typename T>
 struct EpilogueParams {
   const T *p_w, *p_w1;     // [N+2][B]
@@ -699,29 +750,14 @@ struct EpilogueParams {
   float kT;
 };
 
-// torch.log(torch.clamp(p, min=FLT_MIN).to(float32)); a NaN stays NaN
-template <typename T>
-__device__ __forceinline__ float log_clamped(T p) {
-  const T tiny = T(FLT_MIN);
-  return logf((float)(p < tiny ? tiny : p));
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kEpilogueThreads)
     epilogue_kernel(EpilogueParams<T> p) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= p.B * p.N) return;
   const long long b = e / p.N, j = e - b * p.N, x = j + 1;
-  const long long n = p.lengths[b];
-  float a = 0.0f, c = 0.0f;
-  if (x + p.w - 1 <= n)
-    a = (-log_clamped(p.p_w[x * p.B + b]) * p.kT) * kInv1000;
-  if (x + p.w <= n)
-    c = (-log_clamped(p.p_w1[x * p.B + b]) * p.kT) * kInv1000 - a;
-  const long long row = b * p.N;
-  p.acc[row + j] = a;
-  if (j + p.w < p.N) p.cond[row + j + p.w] = c;
-  if (j < p.w) p.cond[row + j] = 0.0f;
+  window_energies(p.p_w[x * p.B + b], p.p_w1[x * p.B + b], b, j,
+                  p.lengths[b], p.N, p.w, p.kT, p.acc, p.cond);
 }
 
 // one launch of `kern`; the only launch site of this file
@@ -738,16 +774,18 @@ int run(void (*kern)(P), long long grid, int threads, size_t bytes,
 
 // ptrs: stem, stem_m, stem_a, multi, multi2, bse, bse_m, bse_a, b_multi,
 //   b_multi2, hpW, A, B, logZ, codes (int64), KI, Kb, bp, rtbp (int32),
-//   stack, int11, int21, int22 (float32), scratch, p_w, p_w1 (27 device
-//   pointers);
+//   stack, int11, int21, int22 (float32), scratch, p_w, p_w1 (26 device
+//   pointers); with `energies` also lengths (int64, [B]), acc and cond
+//   (float32, [B][N] each), and p_w, p_w1 may then both be null;
 // sizes: N+1, B, band, ML, w, S (codes per row), columns per CTA of the
 //   window kernel, its threads per block (a multiple of 32), 1 to stage the
 //   stem rows in shared memory where they fit;
 // scalars: sigma^-1 .. sigma^-4, sigma^-w, sigma^-(w+1), 128 ln 2 (each
-//   rounded to T), the bulge weight b1 (a float32 value)
+//   rounded to T), the bulge weight b1 (a float32 value); with `energies`
+//   also kT (a float32 value)
 template <typename T>
 int launch(void *const *ptrs, const long long *sizes, const double *scalars,
-           void *stream) {
+           void *stream, bool energies) {
   Params<T> p;
   const T **planes[] = {&p.stem, &p.stem_m, &p.stem_a, &p.multi, &p.multi2,
                         &p.bse, &p.bse_m, &p.bse_a, &p.b_multi, &p.b_multi2,
@@ -765,6 +803,10 @@ int launch(void *const *ptrs, const long long *sizes, const double *scalars,
   p.scr = (T *)ptrs[23];
   p.p_w = (T *)ptrs[24];
   p.p_w1 = (T *)ptrs[25];
+  p.lengths = energies ? (const int64_t *)ptrs[26] : nullptr;
+  p.acc = energies ? (float *)ptrs[27] : nullptr;
+  p.cond = energies ? (float *)ptrs[28] : nullptr;
+  p.kT = energies ? (float)scalars[8] : 0.0f;
   p.n1 = sizes[0];
   p.B = sizes[1];
   p.band = (int)sizes[2];
@@ -784,6 +826,11 @@ int launch(void *const *ptrs, const long long *sizes, const double *scalars,
   if (ml != kML || p.w < 1 || p.band < 3 || p.tile < 1 || threads < 32 ||
       threads > kWindowMaxThreads || threads % 32 != 0 || p.S < 1)
     return (int)cudaErrorInvalidConfiguration;
+  if ((p.p_w == nullptr) != (p.p_w1 == nullptr) ||
+      (!energies && p.p_w == nullptr) ||
+      (energies && (p.lengths == nullptr || p.acc == nullptr ||
+                    p.cond == nullptr)))
+    return (int)cudaErrorInvalidValue;
   p.nss = p.band - 1 - p.w > 0 ? p.band - 1 - p.w : 0;
   p.nu = kML - p.w + 1 > 0 ? kML - p.w + 1 : 0;
   p.nt = p.nu > 0 ? p.nu - 1 : 0;
@@ -809,8 +856,11 @@ int launch(void *const *ptrs, const long long *sizes, const double *scalars,
                 : run(window_kernel<T, false>, grid, threads, base, stream,
                       p);
   if (err != 0) return err;
-  return run(sum_kernel<T>, ceil_div((p.n1 + 1) * p.B, kSumThreads),
-             kSumThreads, 0, stream, p);
+  const long long sum_grid = ceil_div((p.n1 + 1) * p.B, kSumThreads);
+  return energies ? run(sum_kernel<T, true>, sum_grid, kSumThreads, 0,
+                        stream, p)
+                  : run(sum_kernel<T, false>, sum_grid, kSumThreads, 0,
+                        stream, p);
 }
 
 // ptrs: p_w, p_w1 (T, [N+2][B]), lengths (int64, [B]), acc, cond (float32,
@@ -856,12 +906,24 @@ extern "C" int access_prob_stamps(unsigned long long *out) {
 
 extern "C" int access_prob_f32(void *const *ptrs, const long long *sizes,
                                const double *scalars, void *stream) {
-  return launch<float>(ptrs, sizes, scalars, stream);
+  return launch<float>(ptrs, sizes, scalars, stream, false);
 }
 
 extern "C" int access_prob_f64(void *const *ptrs, const long long *sizes,
                                const double *scalars, void *stream) {
-  return launch<double>(ptrs, sizes, scalars, stream);
+  return launch<double>(ptrs, sizes, scalars, stream, false);
+}
+
+extern "C" int access_prob_energies_f32(void *const *ptrs,
+                                        const long long *sizes,
+                                        const double *scalars, void *stream) {
+  return launch<float>(ptrs, sizes, scalars, stream, true);
+}
+
+extern "C" int access_prob_energies_f64(void *const *ptrs,
+                                        const long long *sizes,
+                                        const double *scalars, void *stream) {
+  return launch<double>(ptrs, sizes, scalars, stream, true);
 }
 
 extern "C" int access_epilogue_f32(void *const *ptrs, const long long *sizes,

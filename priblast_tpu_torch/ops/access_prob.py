@@ -13,13 +13,21 @@ On CUDA tensors it launches the kernel (a failed build or launch raises);
 on CPU tensors it calls scan_probabilities, its plain version, which the
 kernel matches up to the order of some of its sums.
 
-`accessibility` computes accessibility/batched.py:
-accessibility_from_probabilities, the window energies -kT log p / 1000
-(acc and cond, float32) from p_w and p_w1, with a third kernel of the same
-source (the JAX package's priblast_tpu/accessibility/batched.py:1370-1390,
-the end of _run_batch_impl): one [2, B, N] float32 tensor on CUDA, with
-the same bits as its plain version there; on CPU tensors the plain
-version's acc and cond stacked.
+`window_energies`, the main path's call, computes the window energies
+-kT log p / 1000 (acc and cond, float32) of accessibility/batched.py:
+accessibility_from_probabilities straight from the scans' outputs (the JAX
+package's priblast_tpu/accessibility/batched.py:1370-1390, the end of
+_run_batch_impl): the same two launches, the sum launch writing the
+energies from the probabilities it holds, so they take no launch, wrapper
+call or probability buffer of their own. One [2, B, N] float32 tensor on
+CUDA; on CPU tensors scan_probabilities, then
+accessibility_from_probabilities, stacked.
+
+`accessibility` computes the same energies from p_w and p_w1 given in
+device memory, with a third kernel of the same source that shares the
+sum launch's arithmetic (the form on given probabilities, off the main
+path): the same bits as window_energies on the probabilities that
+window_probs gives, and on the card as its plain version.
 """
 
 from __future__ import annotations
@@ -42,8 +50,13 @@ SRC = Path(__file__).resolve().parents[1] / "csrc" / "access_prob.cu"
 THREADS = 128
 TILE = {torch.float32: 32, torch.float64: 16}
 
-prob_launches = 0  # kernel launches by window_probs(); plain calls not counted
-epilogue_launches = 0  # the same for accessibility()
+# launch counts, plain calls not counted: the probability pass's (its
+# window and sum launches, by window_probs() or window_energies()), the sum
+# launches that also write the window energies (window_energies()), and the
+# epilogue kernel's (accessibility())
+prob_launches = 0
+energies_launches = 0
+epilogue_launches = 0
 
 
 def build() -> Path:
@@ -55,7 +68,7 @@ def build() -> Path:
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    for name in ("access_prob", "access_epilogue"):
+    for name in ("access_prob", "access_prob_energies", "access_epilogue"):
         for dt in ("f32", "f64"):
             fn = getattr(lib, f"{name}_{dt}")
             fn.restype = ctypes.c_int
@@ -161,32 +174,100 @@ def window_probs(t: ab.Tables, g: ab.Grids, s_padded, lengths,
     return out
 
 
+def _pass_args(g, s_padded, lengths, w: int, n_max: int, band: int, dtype,
+               ins, outs, p_w, p_w1, threads: int, tile: int | None,
+               staged: bool):
+    """The pointers, sizes and scalars that both entry points of the
+    probability pass take, on checked arguments (p_w and p_w1 may be None:
+    null pointers), and the tensors they point to that are made here (keep
+    them until the call is enqueued)."""
+    dev = g.hpW.device
+    B = g.hpW.shape[1]
+    logZ = ins[6].gather(0, lengths[None, :])[0].contiguous()
+    scr = torch.empty((_scratch_slots(w, band), n_max + 1, B), dtype=dtype,
+                      device=dev)
+    planes = (*ins[:4], ins[5], *outs, g.hpW, ins[6], ins[7], logZ, s_padded)
+    ptrs = (*(x.data_ptr() for x in planes),
+            *(x.data_ptr() for x in _tables(band - 2, dtype, dev)),
+            scr.data_ptr(), *(0 if x is None else x.data_ptr()
+                              for x in (p_w, p_w1)))
+    sizes = (n_max + 1, B, band, ab.ML, w, s_padded.shape[1],
+             tile or TILE[dtype], threads, int(staged))
+    return ptrs, sizes, _scalars(band - 2, w, dtype), (logZ, scr)
+
+
+def _launch(fn, ptrs, sizes, scalars, stream, what: str) -> None:
+    err = fn((ctypes.c_void_p * len(ptrs))(*ptrs),
+             (ctypes.c_longlong * len(sizes))(*sizes),
+             (ctypes.c_double * len(scalars))(*scalars), stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
 def _prob_call(fn, g, s_padded, lengths, w: int, n_max: int, band: int,
                dtype, ins, outs, stream, threads: int = THREADS,
                tile: int | None = None, staged: bool = True):
     """Allocate the scratch buffer and the outputs and call the C entry
     point of csrc/access_prob.cu (`fn`) on checked arguments on `stream`;
     `staged` = False keeps the stem rows in device memory."""
+    B = g.hpW.shape[1]
+    p = torch.empty((2, n_max + 2, B), dtype=dtype, device=g.hpW.device)
+    ptrs, sizes, scalars, _keep = _pass_args(
+        g, s_padded, lengths, w, n_max, band, dtype, ins, outs, p[0], p[1],
+        threads, tile, staged)
+    _launch(fn, ptrs, sizes, scalars, stream, "access_prob")
+    return p[0], p[1]
+
+
+def _energies_call(fn, g, s_padded, lengths, w: int, n_max: int, band: int,
+                   dtype, ins, outs, kT: float, stream, probs: bool = False,
+                   threads: int = THREADS, tile: int | None = None,
+                   staged: bool = True):
+    """Allocate the scratch buffer and the [2, B, n_max] float32 energies
+    and call an energies entry point of csrc/access_prob.cu (`fn`) on
+    checked arguments on `stream`. With `probs`, also p_w and p_w1:
+    returns (energies, p_w, p_w1)."""
     dev = g.hpW.device
     B = g.hpW.shape[1]
-    logZ = ins[6].gather(0, lengths[None, :])[0].contiguous()
-    scr = torch.empty((_scratch_slots(w, band), n_max + 1, B), dtype=dtype,
-                      device=dev)
-    p = torch.empty((2, n_max + 2, B), dtype=dtype, device=dev)
-    planes = (*ins[:4], ins[5], *outs, g.hpW, ins[6], ins[7], logZ, s_padded)
-    ptrs = (*(x.data_ptr() for x in planes),
-            *(x.data_ptr() for x in _tables(band - 2, dtype, dev)),
-            scr.data_ptr(), p[0].data_ptr(), p[1].data_ptr())
-    sizes = (n_max + 1, B, band, ab.ML, w, s_padded.shape[1],
-             tile or TILE[dtype], threads, int(staged))
-    scalars = _scalars(band - 2, w, dtype)
-    err = fn((ctypes.c_void_p * len(ptrs))(*ptrs),
-             (ctypes.c_longlong * len(sizes))(*sizes),
-             (ctypes.c_double * len(scalars))(*scalars), stream)
-    if err != 0:
-        raise RuntimeError(f"access_prob kernel launch failed: CUDA error "
-                           f"{err}")
-    return p[0], p[1]
+    out = torch.empty((2, B, n_max), dtype=torch.float32, device=dev)
+    p = (torch.empty((2, n_max + 2, B), dtype=dtype, device=dev) if probs
+         else (None, None))
+    ptrs, sizes, scalars, _keep = _pass_args(
+        g, s_padded, lengths, w, n_max, band, dtype, ins, outs, p[0], p[1],
+        threads, tile, staged)
+    _launch(fn, (*ptrs, lengths.data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr()), sizes,
+            (*scalars, float(np.float32(kT))), stream, "access_prob energies")
+    return (out, p[0], p[1]) if probs else out
+
+
+def window_energies(t: ab.Tables, g: ab.Grids, s_padded, lengths,
+                    min_acc_len: int, n_max: int, band: int, dtype, ins,
+                    outs, kT: float, *, checked: bool = False):
+    """The window energies of accessibility_from_probabilities on the
+    probabilities of scan_probabilities, as one [2, B, n_max] float32
+    tensor (acc, then cond), from the inputs of window_probs (the same
+    checks), and kT. On CUDA tensors one call of the pass's two launches,
+    the sum launch writing the energies; on CPU tensors the plain
+    versions."""
+    dev, B = _check(g, s_padded, lengths, min_acc_len, n_max, band, dtype,
+                    ins, outs, checked)
+    if dev.type == "cpu":
+        return torch.stack(ab.accessibility_from_probabilities(
+            *ab.scan_probabilities(t, g, s_padded, lengths, min_acc_len,
+                                   n_max, band, dtype, ins, outs),
+            lengths, min_acc_len, n_max, kT))
+    if dev.type != "cuda":
+        raise ValueError(f"window_energies runs on cuda or cpu, not {dev}")
+    with torch.cuda.device(dev):
+        out = _energies_call(_fn(dtype, "access_prob_energies"), g, s_padded,
+                             lengths, min_acc_len, n_max, band, dtype, ins,
+                             outs, kT,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    # an empty batch launches nothing
+    nvcc.add_launches(globals(), "prob_launches", int(B > 0))
+    nvcc.add_launches(globals(), "energies_launches", int(B > 0))
+    return out
 
 
 def accessibility(p_w, p_w1, lengths, w: int, n_max: int, kT: float, *,
@@ -195,8 +276,9 @@ def accessibility(p_w, p_w1, lengths, w: int, n_max: int, kT: float, *,
     [2, B, n_max] float32 tensor (acc, then cond): p_w and p_w1 [n_max + 2,
     B] float32 or float64, contiguous; lengths [B] int64 in [0, n_max]
     (`checked`: the caller has checked their range on the host, so none is
-    read from the device); w the least accessible length. The kernel for
-    CUDA tensors, accessibility_from_probabilities for CPU tensors."""
+    read from the device); w the least accessible length. The epilogue
+    kernel for CUDA tensors, accessibility_from_probabilities for CPU
+    tensors. Off the main path (window_energies computes these there)."""
     dev = p_w.device
     B = p_w.shape[1] if p_w.dim() == 2 else 0
     if p_w.dtype not in (torch.float32, torch.float64):
@@ -229,11 +311,6 @@ def _epilogue_call(fn, p_w, p_w1, lengths, w: int, n_max: int, kT: float,
     out = torch.empty((2, B, n_max), dtype=torch.float32, device=p_w.device)
     ptrs = (p_w.data_ptr(), p_w1.data_ptr(), lengths.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr())
-    sizes = (B, n_max, w)
-    err = fn((ctypes.c_void_p * len(ptrs))(*ptrs),
-             (ctypes.c_longlong * len(sizes))(*sizes),
-             (ctypes.c_double * 1)(float(np.float32(kT))), stream)
-    if err != 0:
-        raise RuntimeError(f"access_epilogue kernel launch failed: CUDA "
-                           f"error {err}")
+    _launch(fn, ptrs, (B, n_max, w), (float(np.float32(kT)),), stream,
+            "access_epilogue")
     return out

@@ -61,7 +61,9 @@ EMU_THREADS, EMU_TILE = 128, 16
 @pytest.fixture(scope="module")
 def emu_lib(tmp_path_factory):
     return _emu_build(tmp_path_factory.mktemp("access_prob_emu"), ap.SRC,
-                      ("access_prob_f32", "access_prob_f64"))
+                      ("access_prob_f32", "access_prob_f64",
+                       "access_prob_energies_f32",
+                       "access_prob_energies_f64"))
 
 
 @pytest.fixture(scope="module", params=["float64", "float32"])
@@ -70,13 +72,16 @@ def planes(request):
     return _planes(ab._DTYPES[request.param], W_SPAN)
 
 
-@functools.lru_cache(maxsize=4)
-def _planes(dtype, w_span):
+@functools.lru_cache(maxsize=6)
+def _planes(dtype, w_span, short=False):
     """The plain scans' outputs on the ragged batch in `dtype` at the
-    maximal span `w_span` (band w_span + 2)."""
+    maximal span `w_span` (band w_span + 2); with `short`, its second row
+    cut to 3 nt and its fourth to 0 nt (a padding row)."""
     band = w_span + 2
     _names, seqs = fasta.read_fasta(DATA / "tiny_db.fa")
     seqs = [*seqs[: N_SEQ - 1], seqs[N_SEQ - 1][:SHORT]]
+    if short:
+        seqs[1], seqs[3] = seqs[1][:3], ""
     n_max = max(len(q) for q in seqs)
     s = np.zeros((len(seqs), n_max + ab.ML + 4), np.int64)
     for i, q in enumerate(seqs):
@@ -343,3 +348,175 @@ def test_epilogue_wrapper_rejects_bad_inputs(monkeypatch, bad):
     monkeypatch.setattr(ab, "accessibility_from_probabilities", refuse)
     with pytest.raises(ValueError):
         ap.accessibility(*args)
+
+
+# ---------------------------------------------------------------------------
+# the window energies written by the sum launch (entry points
+# access_prob_energies_f32 / _f64), the main path's form: against the plain versions (scan_probabilities, then
+# accessibility_from_probabilities): in float64 within _assert_epilogue's
+# tolerance (the kernel's p_w and p_w1 round to the plain version's float32
+# values there), in float32 within the file's energy bound (the pass sums
+# some terms in another order); against accessibility_from_probabilities on
+# the kernel's own p_w and p_w1 within _assert_epilogue's tolerance in
+# both; bit for bit with the epilogue kernel on those p_w and p_w1 (one
+# compiler, one logf); p_w and p_w1, where asked for, bit for bit with the
+# two-launch form's; and the same energies where they are not asked for.
+# ---------------------------------------------------------------------------
+
+
+def _emu_energies(lib, dtype, g, s, lens, w, n_max, ins, outs, band=BAND,
+                  **kw):
+    fn = getattr(lib, "access_prob_energies_f64" if dtype == torch.float64
+                 else "access_prob_energies_f32")
+    kT = ab._linmodel(band - 2).sp.kT
+    return ap._energies_call(fn, g, s, lens, w, n_max, band, dtype, ins,
+                             outs, kT, 0, **kw)
+
+
+@pytest.mark.parametrize("w,logz,kw", [
+    (5, None, {"probs": True}),
+    (5, None, {}),
+    (2, None, {}),
+    (2, None, {"probs": True}),
+    (20, None, {"probs": True}),
+    (20, None, {}),
+    (5, 700.0, {"probs": True}),
+    (5, 400.0, {}),
+    (5, None, {"staged": False, "threads": 64}),
+    (5, None, {"threads": 96, "tile": 6, "probs": True}),
+    (5, None, {"short": True}),
+    (2, None, {"short": True, "probs": True}),
+])
+def test_energies_source_matches_plain_versions(emu_lib, planes, w, logz,
+                                                kw):
+    """The energies of the sum launch against the plain versions and the
+    epilogue kernel on the two-launch form's p_w and p_w1, as the section
+    above says, at w = 5, 2 and 20, with logZ moved to +-700 (the log arm)
+    and +-400 (the linear arm), the window kernel unstaged at 64 threads
+    and at 96 threads in tiles of 6, and on the batch with rows of 3 nt
+    and 0 nt (`short`); with `probs`, p_w and p_w1 asked for too."""
+    kw = dict(kw)
+    short = kw.pop("short", False)
+    dtype, t, g, s, lens, n_max, ins, outs = (
+        _planes(planes[0], W_SPAN, True) if short else planes)
+    if logz is not None:
+        ins = _moved(ins, lens, logz)
+    geometry = dict(tile=kw.pop("tile", EMU_TILE),
+                    threads=kw.pop("threads", EMU_THREADS),
+                    staged=kw.pop("staged", True))
+    got = _emu_energies(emu_lib, dtype, g, s, lens, w, n_max, ins, outs,
+                        **kw, **geometry)
+    two = _emu(emu_lib, dtype, g, s, lens, w, n_max, ins, outs, **geometry)
+    if kw.get("probs"):
+        got, p_w, p_w1 = got
+        assert torch.equal(p_w, two[0]) and torch.equal(p_w1, two[1])
+    kT = ab._linmodel(W_SPAN).sp.kT
+    epi = ap._epilogue_call(_epilogue_fn(emu_lib, dtype), *two, lens, w,
+                            n_max, kT, 0)
+    assert torch.equal(got.view(torch.int32), epi.view(torch.int32))
+    own = torch.stack(ab.accessibility_from_probabilities(*two, lens, w,
+                                                          n_max, kT))
+    _assert_epilogue(got, own, w)
+    ref = torch.stack(ab.accessibility_from_probabilities(
+        *ab.scan_probabilities(t, g, s, lens, w, n_max, BAND, dtype, ins,
+                               outs), lens, w, n_max, kT))
+    assert float(ref.abs().max()) > 0 and bool(torch.isfinite(got).all())
+    if dtype == torch.float64:
+        _assert_epilogue(got, ref, w)
+    else:
+        assert float((got.double() - ref.double()).abs().max()) <= TOL[
+            dtype][1]
+    if short:  # no window fits in 0 nt, nor one of w > 3 in 3 nt
+        assert bool((got[:, 3] == 0).all())
+        assert w <= 3 or bool((got[:, 1] == 0).all())
+
+
+@pytest.mark.parametrize("w", [2, 20])
+def test_energies_source_row_bits_do_not_depend_on_the_batch(emu_lib, planes,
+                                                             w):
+    """Rows 0 and 3 (the 40-nt one) alone in a batch of two, and rows 0, 1
+    and 3 in a batch of three (whose blocks of the sum launch end inside a
+    window's rows): the same energies, bit for bit, as in the batch of
+    four, at w = 2 and 20."""
+    dtype, _t, g, s, lens, n_max, ins, outs = planes
+    geometry = dict(tile=EMU_TILE, threads=EMU_THREADS)
+    full = _emu_energies(emu_lib, dtype, g, s, lens, w, n_max, ins, outs,
+                         **geometry)
+    for rows in ([0, N_SEQ - 1], [0, 1, N_SEQ - 1]):
+        rows = torch.tensor(rows)
+
+        def pick(x):
+            return x.index_select(1, rows).contiguous()
+
+        part = _emu_energies(emu_lib, dtype, g._replace(hpW=pick(g.hpW)),
+                             s[rows].contiguous(), lens[rows].contiguous(),
+                             w, n_max, tuple(pick(x) for x in ins),
+                             tuple(pick(x) for x in outs), **geometry)
+        assert torch.equal(full.index_select(1, rows), part)
+
+
+@pytest.mark.parametrize("null", ["acc", "lengths", "p_w1"])
+def test_energies_entry_point_refuses_a_null_pointer(emu_lib, planes,
+                                                     monkeypatch, null):
+    """A null acc or lengths, or p_w given without p_w1: the entry point
+    returns a CUDA error before it launches anything, and the wrapper
+    raises."""
+    dtype, _t, g, s, lens, n_max, ins, outs = planes
+    launch = ap._launch
+
+    def drop(fn, ptrs, *rest):
+        ptrs = list(ptrs)
+        ptrs[{"acc": 27, "lengths": 26, "p_w1": 25}[null]] = 0
+        launch(fn, ptrs, *rest)
+
+    monkeypatch.setattr(ap, "_launch", drop)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _emu_energies(emu_lib, dtype, g, s, lens, 5, n_max, ins, outs,
+                      probs=True)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "codes",
+                                 "lengths_dtype", "lengths", "window",
+                                 "device"])
+def test_energies_wrapper_rejects_bad_inputs(monkeypatch, bad):
+    """window_energies raises ValueError before it dispatches (neither
+    plain version is called) on a plane of another dtype, shape or layout,
+    codes not int64, lengths not int64 or past n_max, w < 1 or lengths on
+    another device; on good CPU inputs it returns the plain versions'
+    acc and cond stacked."""
+    dtype, t, g, s, lens, n_max, ins, outs = _planes(torch.float32, W_SPAN)
+    kT = ab._linmodel(W_SPAN).sp.kT
+    w = 5
+    got = ap.window_energies(t, g, s, lens, w, n_max, BAND, dtype, ins,
+                             outs, kT)
+    ref = ab.accessibility_from_probabilities(
+        *ab.scan_probabilities(t, g, s, lens, w, n_max, BAND, dtype, ins,
+                               outs), lens, w, n_max, kT)
+    assert got.shape == (2, N_SEQ, n_max) and got.dtype == torch.float32
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    if bad == "dtype":
+        outs = (*outs[:4], outs[4].double())
+    elif bad == "shape":
+        ins = (*ins[:6], ins[6][:-1], ins[7])
+    elif bad == "contiguous":
+        ins = (ins[0].transpose(0, 1).contiguous().transpose(0, 1),
+               *ins[1:])
+    elif bad == "codes":
+        s = s.int()
+    elif bad == "lengths_dtype":
+        lens = lens.int()
+    elif bad == "lengths":
+        lens = lens + n_max
+    elif bad == "window":
+        w = 0
+    else:
+        lens = lens.to("meta")
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain version ran on refused inputs")
+
+    monkeypatch.setattr(ab, "scan_probabilities", refuse)
+    monkeypatch.setattr(ab, "accessibility_from_probabilities", refuse)
+    with pytest.raises(ValueError):
+        ap.window_energies(t, g, s, lens, w, n_max, BAND, dtype, ins, outs,
+                           kT)

@@ -123,6 +123,49 @@ def test_float64_window_energies_match_jax_at_small_windows(tiny_batch, d):
             assert np.abs(ej - et).max() <= 1e-9
 
 
+def test_batched_raccess_float64_energies_match_jax(tiny_batch, monkeypatch):
+    """BatchedRaccess.run in float64, through its one call per batch
+    (batch_energies: the probability pass writes the energies), against
+    the JAX engine's window probabilities (the _run_batch_impl passes)
+    through the same float32 epilogue (accessibility_from_probabilities):
+    acc and cond within 1e-9 kcal/mol, as the float64 energies above (the
+    two engines' p_w and p_w1 round to the same float32 values)."""
+    _seqs, codes, lens, _exact = tiny_batch
+    n_max = codes.shape[1]
+    calls = []
+    energies0 = tb.batch_energies
+
+    def spy(*a, **k):
+        calls.append(a[4].shape[0])
+        return energies0(*a, **k)
+
+    monkeypatch.setattr(tb, "batch_energies", spy)
+    got = tb.BatchedRaccess(W_SPAN, D, "float64", devices="cpu").run(codes,
+                                                                      lens)
+    assert calls == [len(lens)]
+    pj = _jax_window_probs(_padded(codes), lens, n_max, "float64")
+    ref = tb.accessibility_from_probabilities(
+        *(torch.as_tensor(np.array(x)) for x in pj),
+        torch.as_tensor(lens.astype(np.int64)), D, n_max,
+        tb._linmodel(W_SPAN).sp.kT)
+    for a, b in zip(got, ref):
+        assert a.dtype == np.float32 and float(np.abs(a).max()) > 0
+        assert np.abs(a.astype(np.float64) - b.numpy()).max() <= 1e-9
+
+
+def test_batched_raccess_one_row_equals_its_row_in_two(tiny_batch):
+    """A batch of one row (run as two copies of it, then sliced) gives
+    that row the bits it gets in a batch of two, float32."""
+    _seqs, codes, lens, _exact = tiny_batch
+    engine = tb.BatchedRaccess(W_SPAN, D, "float32", devices="cpu")
+    two = engine.run(codes[:2], lens[:2])
+    for i in (0, 1):
+        one = engine.run(codes[i: i + 1], lens[i: i + 1])
+        for a, b in zip(one, two):
+            assert a.shape == (1, codes.shape[1])
+            assert np.array_equal(a[0].view(np.uint32), b[i].view(np.uint32))
+
+
 @pytest.mark.parametrize("d", [1, 2])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_outputs_match_exact_at_small_windows(tiny_batch, dtype, d):

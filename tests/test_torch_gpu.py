@@ -853,3 +853,59 @@ def test_epilogue_kernel_matches_plain_version_on_the_card(dtype, w):
     assert ap.epilogue_launches == before + 2
     assert got.shape == ref.shape and float(ref.abs().max()) > 0
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [5, 2, 20])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_window_energies_match_plain_versions_on_the_card(dtype, w):
+    """window_energies on the card, on the scan kernels' planes of a
+    ragged batch with padding rows: acc and cond bit for bit with the
+    plain epilogue (accessibility_from_probabilities) and with the
+    epilogue kernel (accessibility) on the probability kernel's p_w and
+    p_w1, and with p_w and p_w1 (asked for) bit for bit with
+    window_probs'; against the whole plain chain (scan_probabilities
+    first, whose sums take some terms in another order) within 1e-9
+    kcal/mol in float64 and 2e-3 in float32. Called with checked=True it
+    makes no synchronising call, and the launch counters grow by 2 a
+    call: one probability pass whose sum launch carries the energies; no
+    epilogue kernel."""
+    dev = _card()
+    dt = ab._DTYPES[dtype]
+    t, g, s, lens, n_max, ins, outs = _prob_inputs(dev, dt)
+    kT = ab._linmodel(70).sp.kT
+    args = (t, g, s, lens, w, n_max, 72, dt, ins, outs)
+    pw = ap.window_probs(*args)
+    own = torch.stack(ab.accessibility_from_probabilities(*pw, lens, w,
+                                                          n_max, kT))
+    two = ap.accessibility(*pw, lens, w, n_max, kT)
+    ref = torch.stack(ab.accessibility_from_probabilities(
+        *ab.scan_probabilities(*args), lens, w, n_max, kT))
+    ap.window_energies(*args, kT, checked=True)
+    torch.cuda.synchronize()
+    before = (ap.prob_launches + ap.energies_launches, ap.epilogue_launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ap.window_energies(*args, kT, checked=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (ap.prob_launches + ap.energies_launches,
+            ap.epilogue_launches) == (before[0] + 2, before[1])
+    torch.cuda.synchronize()
+
+    def bits(x):
+        return x.view(torch.int32)
+
+    assert got.shape == (2, s.shape[0], n_max) and float(ref.abs().max()) > 0
+    assert torch.equal(bits(got), bits(own))
+    assert torch.equal(bits(got), bits(two))
+    assert float((got - ref).abs().max()) <= (1e-9 if dtype == "float64"
+                                              else 2e-3)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        e, p_w, p_w1 = ap._energies_call(
+            ap._fn(dt, "access_prob_energies"), *args[1:], kT, stream,
+            probs=True)
+        torch.cuda.synchronize()
+    assert torch.equal(bits(e), bits(got))
+    assert torch.equal(p_w, pw[0]) and torch.equal(p_w1, pw[1])

@@ -1,9 +1,10 @@
 """The accessibility batch's lengths check, on the CPU: BatchedRaccess
 checks the lengths' range on the host, once per batch, and
-window_probabilities tells the four device wrappers (inside_grids,
-inside_scan, outside_grids, window_probs) with `checked=True`, so that
-on a card none of them reads a value back from the device. Called
-without it, window_probabilities and each wrapper still check the range
+batch_energies (as window_probabilities) tells the four device wrappers
+(inside_grids, inside_scan, outside_grids, and window_energies or
+window_probs) with `checked=True`, so that on a card none of them reads
+a value back from the device. Called without it, batch_energies,
+window_probabilities and each wrapper still check the range
 themselves and raise ValueError before any grid is built or any kernel
 launched.
 
@@ -132,9 +133,10 @@ def test_batched_raccess_rejects_a_bad_length(monkeypatch, lengths):
     codes, _s, _n_max = _batch()
 
     def boom(*a, **k):
-        raise AssertionError("window_probabilities ran")
+        raise AssertionError("the accessibility ran")
 
     monkeypatch.setattr(ab, "window_probabilities", boom)
+    monkeypatch.setattr(ab, "batch_energies", boom)
     engine = ab.BatchedRaccess(W_SPAN, D, devices=[torch.device("cpu")])
     with pytest.raises(ValueError, match="lengths"):
         engine.run(codes, np.asarray(lengths))
