@@ -623,29 +623,14 @@ def device_ms_by_kernel(fn, names: tuple[str, ...] = ()) -> dict:
 
 
 def profiled(fn):
-    """fn() under torch.profiler (host and card), with every
-    profiling.stage also a record_function range of its name: (fn's
-    result, the profiler's events)."""
-    import contextlib
+    """fn() under torch.profiler (host and card), where every
+    profiling.stage is a record_function range of its name: (fn's result,
+    the profiler's events)."""
+    from torch.profiler import ProfilerActivity, profile
 
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from priblast_tpu_torch.utils import profiling
-
-    stage0 = profiling.stage
-
-    @contextlib.contextmanager
-    def labelled(name, devices=None):
-        with record_function(name), stage0(name, devices):
-            yield
-
-    profiling.stage = labelled
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as p:
-            out = fn()
-    finally:
-        profiling.stage = stage0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        out = fn()
     return out, p.events()
 
 
@@ -664,6 +649,8 @@ def stage_split(events, prefix: str = "ris.fused.") -> dict:
     wins = sorted((e for e in events if e.name.startswith(prefix)
                    and e.device_type == DeviceType.CPU),
                   key=lambda e: e.time_range.start)
+    if not wins:
+        fail(f"no {prefix}* stage range under the profiler")
     out = {w.name: {"ranges": 0, "ms": 0.0, "entry_wait": 0.0,
                     "parts": Counter(), "runtime": Counter(),
                     "device": Counter()} for w in wins}
@@ -1154,9 +1141,9 @@ def split_child(db: str) -> None:
     """The main path's `ris` (device chain; the queries beside the db
     directory `db`) twice in this process, with the package beside this
     script, each fused stage under torch.profiler; prints the two
-    stage_split()s as one JSON line. `python3 chip_smoke.py --split-child
-    DB` from a copy of this script in another checkout splits that
-    checkout's fused stage."""
+    stage_split()s as one JSON line. The split reads the ranges the
+    package's stages open under a recording profiler, so the script splits
+    only a package whose `profiling.stage` opens them."""
     import torch
 
     sys.path.insert(0, str(REPO))

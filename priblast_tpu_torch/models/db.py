@@ -62,7 +62,8 @@ def run(p: DbParams, threads: int | None = None, devices=None) -> None:
     p.validate()
     pidx, pcount = multihost.init_from_env()
     try:
-        _run(p, threads, pidx, pcount, devices)
+        with prof.command("db"):
+            _run(p, threads, pidx, pcount, devices)
     finally:
         multihost.shutdown()
 
@@ -77,7 +78,8 @@ def _run(p: DbParams, threads: int | None, pidx: int, pcount: int,
         devices = dist.local_devices(p.device, pidx, pcount)
     else:
         devices = dist.device_list(devices)
-    names, seqs = fasta.read_fasta(p.input)
+    with prof.stage("db.read"):
+        names, seqs = fasta.read_fasta(p.input)
     if pcount > 1:
         mine = sorted(multihost.partition_for(
             p.algorithm, [len(s) for s in seqs], pcount)[pidx])
@@ -131,8 +133,9 @@ def _run(p: DbParams, threads: int | None, pidx: int, pcount: int,
             store.append_seq_chunk(p.db_name, sizes[lo:hi], enc,
                                    first=(ci == 0))
 
-    store.write_acc(p.db_name, accs, conds)
-    store.write_nam(p.db_name, names)
-    store.write_bas(p.db_name, p.hash_size, p.repeat_flag, p.maximal_span,
-                    p.min_accessible_length)
+    with prof.stage("db.write"):
+        store.write_acc(p.db_name, accs, conds)
+        store.write_nam(p.db_name, names)
+        store.write_bas(p.db_name, p.hash_size, p.repeat_flag,
+                        p.maximal_span, p.min_accessible_length)
     prof.maybe_report()

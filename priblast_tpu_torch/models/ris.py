@@ -110,7 +110,8 @@ def run(p: RisParams, threads: int | None = None, devices=None) -> None:
 
     pidx, pcount = multihost.init_from_env()
     try:
-        _run(p, threads, pidx, pcount, devices)
+        with prof.command("ris"):
+            _run(p, threads, pidx, pcount, devices)
     finally:
         multihost.shutdown()
 

@@ -198,19 +198,18 @@ def run_queries(p: RisParams, chunks, names, seqs, order, results, *,
     mode = device_extend_mode()
     dbpack = None
     done_q, t_start = 0, time.perf_counter()
-    for wi, wave in enumerate(_wave_plan(order, lengths)):
-        with prof.device_trace(f"ris_wave{wi}"):
-            with prof.stage("ris.accessibility", devices):
-                accs = _accessibility_batched(engine, seqs, lengths, wave)
-            queries = []
-            for idx in wave:
-                q_enc = alphabet.encode_query(seqs[idx], p.repeat_flag)
-                queries.append((q_enc, native.sa_build(q_enc), *accs[idx]))
-            split = route(p, chunks, queries, mode, devices, threads)
-            if split[1] and dbpack is None:
-                dbpack = pl.DbPack(chunks, devices=devices)
-            found = _search_wave(p, chunks, [names[i] for i in wave],
-                                 queries, split, dbpack, devices, threads)
+    for wave in _wave_plan(order, lengths):
+        with prof.stage("ris.accessibility", devices):
+            accs = _accessibility_batched(engine, seqs, lengths, wave)
+        queries = []
+        for idx in wave:
+            q_enc = alphabet.encode_query(seqs[idx], p.repeat_flag)
+            queries.append((q_enc, native.sa_build(q_enc), *accs[idx]))
+        split = route(p, chunks, queries, mode, devices, threads)
+        if split[1] and dbpack is None:
+            dbpack = pl.DbPack(chunks, devices=devices)
+        found = _search_wave(p, chunks, [names[i] for i in wave],
+                             queries, split, dbpack, devices, threads)
         for qid, lines in found.items():
             results[wave[qid]] = lines
         done_q += len(wave)

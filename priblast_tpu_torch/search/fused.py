@@ -193,7 +193,7 @@ def launch_block(p, o: int, B: int, wb: _WaveBuffers, qpack, dbpack,
     """The launch half of a block: pairs o .. o + B - 1 of the wave into
     the expansion kernel on `device` (its plain version on the CPU), from
     its copies of the packs and candidates; nothing is read back."""
-    with prof.stage("ris.fused.expand"):
+    with prof.stage("ris.fused.expand_launch"):
         return fexp.expand_start(p.min_accessible_length, p.max_seed_length,
                                  o, B, wb.at(device), qpack.at(device),
                                  dbpack.at(device))

@@ -25,6 +25,7 @@ from priblast_tpu_torch.ops import gapped_sweep as sweep_op
 # the plane tables of the plain version, importable from here as before
 from priblast_tpu_torch.ops.gapped_sweep import (  # noqa: F401
     _plane_tables, tables_from_numpy)
+from priblast_tpu_torch.utils import profiling as prof
 
 
 def _extend_dir(q_start, db_start, id_anchor, energy0, acc0, valid,
@@ -115,10 +116,15 @@ def gapped_extend_flat_batch(hits, qbufs, dbufs, *, d: int, dropout: int,
     ints, floats, ovf, tb = gapped_extend_both(
         cols, energy, acc_e, valid, qbufs, dbufs, d=d, dropout=dropout,
         min_helix=min_helix, max_ext=max_ext, dtype=dtype)
-    ints = ints.cpu().numpy().astype(np.int32)
-    floats = floats.cpu().numpy()
-    tb = tb.cpu().numpy().astype(np.int32)
-    overflow = ovf.cpu().numpy()
+    prof.count("ris.gapped.d2h_bytes",
+               ints.nbytes + floats.nbytes + tb.nbytes + ovf.nbytes)
+    with prof.stage("ris.gapped.fetch"):
+        ints, floats, tb, overflow = (t.cpu().numpy()
+                                      for t in (ints, floats, tb, ovf))
+    ints = ints.astype(np.int32)
+    tb = tb.astype(np.int32)
+    prof.count("ris.gapped.hits", n)
+    prof.count("ris.gapped.overflow", int(overflow.sum()))
     m_i0, m_j0, m_i1, m_j1 = (ints[:, k] for k in range(4))
     q_sp = np.asarray(hits["q_sp"]).astype(np.int32)
     db_sp = np.asarray(hits["db_sp"]).astype(np.int32)

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import copy
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -183,11 +184,28 @@ def _concat_groups(parts, groups_meta):
     return HitStream(soa, groups)
 
 
-def _map_groups(fn, groups, threads: int):
+def _map_groups(fn, groups, threads: int, name: str | None = None):
+    """[fn(g) for g in groups], on a pool of `threads` host threads. Given
+    a stage `name`, each call is the span <name>.group, and the counter
+    <name>.pool_s adds the map's wall time times the threads it can keep
+    busy, so the spans' sum over the counter is the pool's busy share."""
+    one = fn
+    if name is not None:
+        def one(g):
+            with prof.stage(f"{name}.group"):
+                return fn(g)
+
+    t0 = time.perf_counter()
     if threads > 1 and len(groups) > 1:
         with cf.ThreadPoolExecutor(threads) as ex:
-            return list(ex.map(fn, groups))
-    return [fn(g) for g in groups]
+            out = list(ex.map(one, groups))
+        workers = min(threads, len(groups))
+    else:
+        out = [one(g) for g in groups]
+        workers = 1
+    if name is not None:
+        prof.count(f"{name}.pool_s", (time.perf_counter() - t0) * workers)
+    return out
 
 
 def seed_stage(p, chunks, queries, threads: int = 1) -> HitStream:
@@ -298,7 +316,7 @@ def mid_stage(stream: HitStream, queries, chunks, p, threads: int = 1):
         sub = {k: stream.soa[k][lo:hi] for k in STREAM_KEYS}
         return native.chain_mid(queries[qid][0], chunks[cid], p, sub)
 
-    parts = _map_groups(one, stream.groups, threads)
+    parts = _map_groups(one, stream.groups, threads, "ris.mid")
     meta = [(qid, cid) for qid, cid, _, _ in stream.groups]
     out = _concat_groups(parts, meta)
     bp_off = np.concatenate(
@@ -512,7 +530,7 @@ def finish_stage(stream: HitStream, bps: dict, queries, chunks, p,
                                    off, bps["bp_q"][blo:bhi],
                                    bps["bp_db"][blo:bhi])
 
-    return _map_groups(one, stream.groups, threads)
+    return _map_groups(one, stream.groups, threads, "ris.finish")
 
 
 def search_all(p, chunks, queries, qpack: QueryPack, dbpack: DbPack, *,
