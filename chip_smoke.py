@@ -2192,10 +2192,13 @@ def main() -> int:
     def hold(label, a, k):
         """Kernel vs plain version on the same inputs: integers and
         traceback lists identical, floats to 1e-6 (float32) / 1e-12
-        (float64); then both timed."""
+        (float64); then both timed. Prints the kernel's form and, from the
+        plain version's counts, the combos per hit and per diagonal and
+        the work list's lane efficiency (combos / (32 x rounds))."""
         dtype = k.get("dtype", "float32")
         ik, fk, tk = kernel(*a, **k)
-        ip, fp, tp = gapped_sweep.extend_dir_plain(*a, **k)
+        work = {}
+        ip, fp, tp = gapped_sweep.extend_dir_plain(*a, **k, counts=work)
         torch.cuda.synchronize()
         check(torch.equal(ik, ip), f"ints differ ({label})")
         check(torch.equal(tk, tp), f"traceback lists differ ({label})")
@@ -2205,15 +2208,25 @@ def main() -> int:
         ms = cuda_ms(lambda: kernel(*a, **k), 20)
         plain = cuda_ms(lambda: gapped_sweep.extend_dir_plain(*a, **k), 1)
         bound, bound_by, lanes = extend_bound_ms(a, k, ik)
+        B = a[0].shape[0]
+        form = gapped_sweep.kernel_form(k["max_ext"], a[0].device)
+        eff = work["combos"] / max(32 * work["rounds"], 1)
         print(f"[kernel] gapped_extend {label} {dtype} max_ext="
-              f"{k['max_ext']} flag={k['flag']} B={a[0].shape[0]}: "
+              f"{k['max_ext']} flag={k['flag']} B={B} form {form}: "
               f"{ms:.4f} ms, plain {plain:.2f} ms, bound {bound:.6f} ms "
               f"({bound_by}), {ms / bound:.1f}x bound, "
               f"{float(ik[:, 4].float().mean()):.2f} diagonals per hit, "
-              f"{lanes:.2f} band lanes per diagonal, max |floats diff| "
-              f"{diff:.3g} {tag}", flush=True)
+              f"{lanes:.2f} band lanes per diagonal, combos "
+              f"{work['combos'] / B:.2f} per hit, "
+              f"{work['combos'] / max(work['diagonals'], 1):.3f} per "
+              f"diagonal, admitted cells "
+              f"{work['admitted'] / max(work['diagonals'], 1):.3f} per "
+              f"diagonal, work-list lane efficiency {eff:.4f} "
+              f"({work['rounds']} rounds), max |floats diff| {diff:.3g} "
+              f"{tag}", flush=True)
         return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by,
-                    err=diff)
+                    err=diff, form=form, combos_per_hit=work["combos"] / B,
+                    lane_efficiency=eff)
 
     check(len(first_sweep) == 1, "no gapped kernel inputs captured")
     a0, k0 = first_sweep[0]
@@ -2780,7 +2793,9 @@ def main() -> int:
         "launches": launches, "max_abs_err": err,
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "form": main_rec["form"],
+        "combos_per_hit": main_rec["combos_per_hit"],
+        "lane_efficiency": main_rec["lane_efficiency"],
     }, {
         "name": "ungapped_extend", "route": "cuda",
         "source": "priblast_tpu_torch/csrc/ungapped_extend.cu",

@@ -71,12 +71,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC"]
 
 launches = 0  # kernel launches by gapped_extend_dir(); plain calls not counted
+# the same launches by the kernel's form (`kernel_form`)
+form_launches = {"worklist": 0, "lanes": 0}
+WORKLIST_MAX_EXT = 32   # csrc/gapped_extend.cu kWorkMax
 
 
 def combos(dropout: int):
     """(s, u1) predecessor offsets in the reference's stems-list order."""
     return [(s, u1) for s in range(dropout, -1, -1)
             for u1 in range(s, -1, -1)]
+
+
+def kernel_form(max_ext: int, device) -> str | None:
+    """The form of the sweep that gapped_extend_dir runs on `device`: the
+    kernel's work list for max_ext <= 32 (a diagonal's cells fit a warp's
+    lanes and a ring row's finite cells one mask word), its lanes form for
+    wider ones, and None on the CPU (the plain version)."""
+    if torch.device(device).type != "cuda":
+        return None
+    return "worklist" if max_ext <= WORKLIST_MAX_EXT else "lanes"
 
 
 def build() -> Path:
@@ -393,6 +406,7 @@ def gapped_extend_dir(q_start, db_start, id_anchor, energy0, acc0, valid,
                     **kw)
     # an empty batch launches nothing
     nvcc.add_launches(globals(), "launches", int(B > 0))
+    nvcc.add_launches(form_launches, kernel_form(max_ext, dev), int(B > 0))
     return out
 
 
@@ -469,14 +483,16 @@ def _seq_prefix(inc):
 def extend_dir_plain(q_start, db_start, id_anchor, energy0, acc0, valid,
                      qb, qab, dbb, aoff, coff, q_enc, db_seq, q_acc, q_cond,
                      db_acc, db_cond, *, flag: int, d: int, dropout: int,
-                     min_helix: int, max_ext: int, dtype: str = "float32"):
+                     min_helix: int, max_ext: int, dtype: str = "float32",
+                     counts: dict | None = None):
     """Plain PyTorch version of `gapped_extend_dir`, on any device: the
     character windows and prefix chains, the energy "planes" (every table
     term of the DP is a function of a few characters around a cell, looked
     up once per call as ``M[q-side index, d-side index]`` into hit-major
     diagonal rows [B, max_ext+1, W], row D, lane i = cell (i, D - i)), the
     sweep (`sweep_plain`) and the traceback, a fixed-length walk over the
-    predecessor rows."""
+    predecessor rows. `counts`, if given, gets the sweep's work added
+    (`count_work`)."""
     dt = _DTYPES[dtype]
     dev = q_start.device
     r_np = _tables_np()
@@ -600,7 +616,7 @@ def extend_dir_plain(q_start, db_start, id_anchor, energy0, acc0, valid,
     pred, ints, floats = sweep_plain(
         F, bits, extq.contiguous(), extdb.contiguous(), hit_i, hit_f,
         _loop_consts(dropout, dt, dev), float(r_np["term_au"]),
-        dropout=dropout, max_ext=max_ext)
+        dropout=dropout, max_ext=max_ext, counts=counts)
     min_i, min_j = ints[:, 0].long(), ints[:, 1].long()
 
     # --- traceback (reference: gapped_extension.cpp:409-424): walk the
@@ -634,14 +650,54 @@ def _shift_lanes(x, sh: int, fill):
     return out
 
 
+WORK_KEYS = ("diagonals", "band", "admitted", "combos", "rounds", "steps",
+             "empty", "busiest", "nopred")
+
+
+def count_work(counts: dict, L: int, active, band, adm, win_h,
+               dropout: int) -> None:
+    """Adds diagonal L's work to `counts` (keys WORK_KEYS, sums over the
+    hits), from the sweep's state before the diagonal's row is added
+    (`win_h` row dropout - s holds the predecessors' diagonal L - s - 2):
+    diagonals swept, band cells, admitted cells, combos (an admitted cell's
+    (s, u1) whose predecessor holds a finite hyb), the work list's rounds
+    of 32 combos (per hit and diagonal), (admitted cell, s) steps whose
+    predecessor diagonal is >= 0, those of them without a combo (`empty`),
+    over s the most combos of one admitted cell (`busiest`: the lane of a
+    one-lane-per-cell sweep that walks every s), and the admitted cells
+    without a combo (`nopred`: the stems[0] fallback). The kernel's
+    -DGAPPED_STAMPS build counts the same."""
+    B, _, W = win_h.shape
+    smax = min(dropout, L - 2)
+    cnt = torch.zeros((B, max(smax + 1, 1), W), dtype=torch.long,
+                      device=win_h.device)
+    for s in range(smax + 1):
+        fin = torch.isfinite(win_h[:, dropout - s])
+        for u1 in range(s + 1):
+            cnt[:, s] += _shift_lanes(fin, u1 + 1, False).long()
+    cnt *= adm[:, None, :]
+    n = cnt.sum((1, 2))
+    steps = int(adm.sum()) * (smax + 1) if smax >= 0 else 0
+    empty = int(((cnt == 0) & adm[:, None, :]).sum()) if smax >= 0 else 0
+    add = dict(diagonals=int(active.sum()), band=int(band.sum()),
+               admitted=int(adm.sum()), combos=int(n.sum()),
+               rounds=int(((n + 31) // 32).sum()), steps=steps, empty=empty,
+               busiest=int(cnt.max(2).values.sum()),
+               nopred=int((adm & (cnt.sum(1) == 0)).sum()))
+    for k, v in add.items():
+        counts[k] = counts.get(k, 0) + v
+
+
 def sweep_plain(fplanes, iplanes, extq, extdb, hit_i, hit_f, consts,
-                tau: float, *, dropout: int, max_ext: int):
+                tau: float, *, dropout: int, max_ext: int,
+                counts: dict | None = None):
     """Plain PyTorch version of the sweep: the XLA while-loop body of
     priblast_tpu/search/gapped.py:553-692 in the same operation order, as
     a Python loop over the diagonals for the whole batch. The combo
     minimum is a sequential strict-< scan in stems-list order, which keeps
     the first minimum exactly as the reference's stems scan (and the
-    left-priority tournament of the TPU kernel) does."""
+    left-priority tournament of the TPU kernel) does. `counts`: see
+    `count_work`."""
     B, _, ME1, W = fplanes.shape
     dt = fplanes.dtype
     dev = fplanes.device
@@ -730,6 +786,8 @@ def sweep_plain(fplanes, iplanes, extq, extdb, hit_i, hit_f, consts,
         cellmask = (active[:, None] & (lane >= 1) & (lane <= L - 1)
                     & (lane <= maxq) & (li <= maxd))
         adm_new = cellmask & nz0 & ~(gate & badr)
+        if counts is not None:
+            count_work(counts, L, active, cellmask, adm_new, win_h, dropout)
 
         # combo minimum in stems-list order (strict <: first one wins).
         # Non-admitted predecessor cells hold INF in the hyb window.

@@ -124,6 +124,8 @@ def gapped_extend_flat_batch(hits, qbufs, dbufs, *, d: int, dropout: int,
     ints = ints.astype(np.int32)
     tb = tb.astype(np.int32)
     prof.count("ris.gapped.hits", n)
+    if sweep_op.kernel_form(max_ext, device) == "worklist":
+        prof.count("ris.gapped.worklist_hits", n)
     prof.count("ris.gapped.overflow", int(overflow.sum()))
     m_i0, m_j0, m_i1, m_j1 = (ints[:, k] for k in range(4))
     q_sp = np.asarray(hits["q_sp"]).astype(np.int32)

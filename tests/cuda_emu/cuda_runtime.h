@@ -18,6 +18,8 @@
 // fence, a volatile 64-bit access one access, and the copies memcpy.
 #pragma once
 #include <algorithm>
+#include <atomic>
+#include <chrono>
 #include <cmath>
 #include <condition_variable>
 #include <cstdint>
@@ -63,20 +65,32 @@ int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int *n, F, int threads,
 }
 inline int cudaGetLastError() { return 0; }
 
+// a barrier of n threads: the last to arrive starts the next generation;
+// the others spin on it for a while (a warp's threads meet often and soon),
+// then sleep
 struct EmuBarrier {
+  static constexpr int kSpin = 256;
   std::mutex m;
   std::condition_variable cv;
-  int n = 0, count = 0, gen = 0;
+  std::atomic<int> count{0}, gen{0};
+  int n = 0;
   void wait() {
-    std::unique_lock<std::mutex> lk(m);
-    const int g = gen;
-    if (++count == n) {
-      count = 0;
-      ++gen;
+    const int g = gen.load(std::memory_order_acquire);
+    if (count.fetch_add(1, std::memory_order_acq_rel) + 1 == n) {
+      count.store(0, std::memory_order_relaxed);
+      {
+        std::lock_guard<std::mutex> lk(m);
+        gen.fetch_add(1, std::memory_order_acq_rel);
+      }
       cv.notify_all();
-    } else {
-      cv.wait(lk, [&] { return gen != g; });
+      return;
     }
+    for (int k = 0; k < kSpin; ++k) {
+      if (gen.load(std::memory_order_acquire) != g) return;
+      std::this_thread::yield();
+    }
+    std::unique_lock<std::mutex> lk(m);
+    cv.wait(lk, [&] { return gen.load(std::memory_order_acquire) != g; });
   }
 };
 constexpr int kEmuMaxThreads = 1024;
@@ -133,13 +147,36 @@ inline unsigned __reduce_or_sync(unsigned, unsigned v) {
 inline bool __any_sync(unsigned mask, bool pred) {
   return __ballot_sync(mask, pred) != 0;
 }
-template <class T> T __shfl_xor_sync(unsigned, T v, int off) {
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  const int64_t *slot = emu_exchange(v);
+  unsigned s = 0;
+  for (int k = 0; k < emu_lanes(); ++k) s += (unsigned)slot[emu_lane0() + k];
+  return s;
+}
+// lane `src` (of the calling warp) of every lane's v; a lane outside the
+// warp reads its own, as __shfl_up_sync / __shfl_down_sync do
+template <class T> T emu_shfl(T v, int src) {
   int64_t bits = 0;
   std::memcpy(&bits, &v, sizeof(T));
-  const int64_t o = emu_exchange(bits)[threadIdx.x ^ off];
+  const int64_t *slot = emu_exchange(bits);
+  const int64_t o = src >= 0 && src < emu_lanes() ? slot[emu_lane0() + src]
+                                                   : bits;
   T r;
   std::memcpy(&r, &o, sizeof(T));
   return r;
+}
+inline int emu_lane() { return (int)threadIdx.x - emu_lane0(); }
+template <class T> T __shfl_xor_sync(unsigned, T v, int off) {
+  return emu_shfl(v, emu_lane() ^ off);
+}
+template <class T> T __shfl_up_sync(unsigned, T v, int off) {
+  return emu_shfl(v, emu_lane() >= off ? emu_lane() - off : emu_lane());
+}
+template <class T> T __shfl_down_sync(unsigned, T v, int off) {
+  return emu_shfl(v, emu_lane() + off);
+}
+template <class T> T __shfl_sync(unsigned, T v, int src) {
+  return emu_shfl(v, src & 31);
 }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
@@ -164,12 +201,24 @@ template <class T> T atomicAdd(T *p, T v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
 inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+inline long long clock64() {
+  return std::chrono::steady_clock::now().time_since_epoch().count();
+}
 inline void __nanosleep(unsigned) { std::this_thread::yield(); }
 
 enum cudaMemcpyKind { cudaMemcpyDeviceToHost = 2 };
 enum { cudaStreamNonBlocking = 1 };
 inline int cudaStreamCreateWithFlags(cudaStream_t *s, unsigned) {
   *s = nullptr;
+  return 0;
+}
+template <class S> int cudaMemcpyFromSymbol(void *dst, const S &sym,
+                                            size_t n) {
+  std::memcpy(dst, &sym, n);
+  return 0;
+}
+template <class S> int cudaMemcpyToSymbol(S &sym, const void *src, size_t n) {
+  std::memcpy(&sym, src, n);
   return 0;
 }
 inline int cudaMemsetAsync(void *p, int v, size_t n, cudaStream_t) {

@@ -33,6 +33,7 @@ from priblast_tpu_torch.ops import native
 from priblast_tpu_torch.search import gapped as tgapped
 from priblast_tpu_torch.search import pipeline as tpl
 from priblast_tpu_torch.utils import alphabet, store
+from priblast_tpu_torch.utils import profiling as prof
 from priblast_tpu_torch.utils.params import DbParams, RisParams
 from test_torch_ungapped import build_staged, stream_of
 
@@ -161,6 +162,34 @@ def test_gapped_ragged_batch(mid_batch):
         for c in ("q", "db"):
             assert np.array_equal(part[1][c + side],
                                   full[1][c + side][: n.sum()])
+
+
+@pytest.mark.parametrize("form", ["worklist", "lanes", None])
+def test_gapped_counts_the_hits_of_the_work_list(mid_batch, monkeypatch,
+                                                 form):
+    """`ris.gapped.worklist_hits` adds the hits of a batch whose kernel
+    runs the work list (the form is the wrapper's `kernel_form`, here
+    stood in for as on the card), `ris.gapped.hits` every batch's; the
+    results do not depend on it (the plain version runs on the CPU)."""
+    mb = mid_batch
+    n = len(mb["sub"]["q_sp"])
+    ref = _port(mb, max_ext=32, dtype="float64")
+    seen = []
+
+    def stand_in(max_ext, device):
+        seen.append((max_ext, torch.device(device).type))
+        return form
+
+    monkeypatch.setattr(sweep_op, "kernel_form", stand_in)
+    before = prof.counters()
+    got = _port(mb, max_ext=32, dtype="float64")
+    after = prof.counters()
+    assert seen == [(32, "cpu")]
+    assert after["ris.gapped.hits"] - before.get("ris.gapped.hits", 0) == n
+    assert (after.get("ris.gapped.worklist_hits", 0)
+            - before.get("ris.gapped.worklist_hits", 0)
+            == (n if form == "worklist" else 0))
+    _assert_same(got, ref, False)
 
 
 def test_gapped_tie_rule_on_periodic_sequences(tmp_path, monkeypatch):

@@ -29,6 +29,7 @@ from priblast_tpu_torch.search import fused, seed
 from priblast_tpu_torch.search import gapped as tgapped
 from priblast_tpu_torch.search import pipeline as tpl
 from priblast_tpu_torch.utils import alphabet, fasta, store
+from priblast_tpu_torch.utils import profiling as prof
 from priblast_tpu_torch.utils.params import DbParams, RisParams
 
 TESTS = Path(__file__).resolve().parent
@@ -75,8 +76,10 @@ def test_sweep_kernel_matches_plain_version_on_the_card(tiny_mids, dtype,
                                                         max_ext):
     """The CUDA kernel (one direction, characters to traceback) and the
     plain version, fed the same hits on the card, give identical integers,
-    traceback lists and floats (max_ext=120 float64 needs more than 48 KB
-    of shared memory per block)."""
+    traceback lists and floats, in both of the kernel's forms: the work
+    list at max_ext 32 (whose hits `ris.gapped.worklist_hits` counts), lanes
+    at 64 and 120 (max_ext=120 float64 needs more than 48 KB of shared
+    memory per block)."""
     dev = _card()
     chunks, queries, mids, _pres = tiny_mids
     qpack = tpl.QueryPack([q[0] for q in queries], [q[2] for q in queries],
@@ -94,6 +97,10 @@ def test_sweep_kernel_matches_plain_version_on_the_card(tiny_mids, dtype,
         return out
 
     launches = sweep_op.launches
+    form = sweep_op.kernel_form(max_ext, dev)
+    assert form == ("worklist" if max_ext <= 32 else "lanes")
+    by_form = dict(sweep_op.form_launches)
+    worklist_hits = prof.counters().get("ris.gapped.worklist_hits", 0)
     try:
         sweep_op.gapped_extend_dir = both
         tgapped.gapped_extend_flat_batch(
@@ -102,6 +109,10 @@ def test_sweep_kernel_matches_plain_version_on_the_card(tiny_mids, dtype,
     finally:
         sweep_op.gapped_extend_dir = kernel
     assert sweep_op.launches == launches + 2 and len(calls) == 2
+    assert sweep_op.form_launches == {
+        f: n + 2 * (f == form) for f, n in by_form.items()}
+    assert prof.counters().get("ris.gapped.worklist_hits", 0) == (
+        worklist_hits + len(stream) * (form == "worklist"))
     for (ik, fk, tk), (ip, fp, tp) in calls:
         assert torch.equal(ik, ip) and torch.equal(tk, tp)
         assert torch.equal(fk, fp)
@@ -281,6 +292,20 @@ def test_sweep_wrapper_rejects_bad_inputs(bad):
         kw["max_ext"] = 121
     with pytest.raises(ValueError):
         sweep_op.gapped_extend_dir(*args, **kw)
+
+
+def test_kernel_form_follows_max_ext():
+    """The wrapper's form, as the kernel's launch chooses it: the work list
+    up to max_ext 32 (csrc/gapped_extend.cu kWorkMax), lanes above it, the
+    plain version on the CPU."""
+    cuda = torch.device("cuda")
+    assert [sweep_op.kernel_form(m, cuda) for m in (1, 24, 32, 33, 64, 120)
+            ] == ["worklist"] * 3 + ["lanes"] * 3
+    assert sweep_op.kernel_form(32, "cpu") is None
+    src = sweep_op._SRC.read_text()
+    assert (f"constexpr int kWorkMax = {sweep_op.WORKLIST_MAX_EXT};" in src)
+    assert "p.max_ext <= kWorkMax ? plan_nc<T, DROP, 1>" in src
+    assert "if (p.max_ext <= kWorkMax) return launch_nc<T, DROP, 1>" in src
 
 
 def test_sweep_plain_on_invalid_hits_keeps_inputs():

@@ -2,7 +2,11 @@
 the CUDA built-ins (tests/cuda_emu/cuda_runtime.h: one std::thread per
 CUDA thread), against their plain PyTorch versions on the tiny goldens:
 the gapped kernel (one warp per block) on the mid-stage hits, integers,
-traceback lists and floats identical; the ungapped kernel (a thread per
+traceback lists and floats identical, and its work-list form (max_ext <=
+32) also on synthetic GC-rich hits (every band cell admitted, diagonals of
+hundreds of combos, equal energies whose order decides, overflow at
+max_ext), with its -DGAPPED_STAMPS build's counts against the plain
+version's; the ungapped kernel (a thread per
 hit) on the stage-1 hits, on exact argmin ties, on a batch that mixes
 long and short hits in every warp, on batches smaller than a warp or
 ending inside a warp and on hits that step past both ends of the flat
@@ -51,17 +55,20 @@ def _emulated_source(src: str) -> str:
     return out
 
 
-def _emu_build(d: Path, src: Path, entry_points) -> ctypes.CDLL:
-    """g++ build of a kernel source against tests/cuda_emu/; the C entry
-    points take (ptrs, sizes, iparams, stream) and return an int."""
+def _emu_build(d: Path, src: Path, entry_points, flags=(),
+               text: str | None = None) -> ctypes.CDLL:
+    """g++ build of a kernel source (or of `text` in its place) against
+    tests/cuda_emu/, with extra `flags`; the C entry points take (ptrs,
+    sizes, iparams, stream) and return an int."""
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed (it also builds the native engine)"
     emu = d / f"{src.stem}_emu.cc"
-    emu.write_text(_emulated_source(src.read_text()))
+    emu.write_text(_emulated_source(src.read_text() if text is None
+                                    else text))
     lib = d / f"lib{src.stem}_emu.so"
     subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-I", str(TESTS / "cuda_emu"), "-o", str(lib),
-                    str(emu), "-lpthread"], check=True)
+                    "-shared", "-I", str(TESTS / "cuda_emu"), *flags, "-o",
+                    str(lib), str(emu), "-lpthread"], check=True)
     out = ctypes.CDLL(str(lib))
     for name in entry_points:
         getattr(out, name).restype = ctypes.c_int
@@ -143,6 +150,154 @@ def test_kernel_source_matches_plain_version_in_emulation(
         swept += int(plain[0][:, 4].sum())
         assert (plain[0][3] == 0).all() and (plain[2][3] == 0).all()
     assert swept > 10 * N_HITS   # the hits do extend
+
+
+# ---- the work-list form (max_ext <= 32) on synthetic GC-rich hits ---------
+
+STAMP_KEYS = ("hits", "diagonals", "band", "admitted", "combos", "steps",
+              "empty", "busiest", "rounds", "nopred")  # kernel's kS* order
+N_STAMPS = len(STAMP_KEYS) + 7                          # then 7 cycle sums
+GAPPED_KW = dict(d=5, dropout=16, min_helix=3, max_ext=32)
+
+# query, db: every band cell admitted (G pairs with C everywhere); a
+# periodic pair where some cells pair and some do not; and one whose
+# tracebacks pass equal-energy combos that meet in one round's lanes and in
+# different rounds
+SYNTHETIC = {"every_cell_admitted": ("G" * 120, "C" * 120),
+             "periodic": ("GGCGCC" * 20, "GGCGCC" * 20),
+             "tied": ("GGGAGG" * 20, "CCUCCC" * 20)}
+
+
+def _synthetic_args(name: str, n_hits: int = 2):
+    """gapped_extend_dir's arguments for `n_hits` hits spread over a
+    synthetic query and db (SYNTHETIC[name]), with accessibility energies in
+    [0, 0.3) from a fixed seed."""
+    q, d = SYNTHETIC[name]
+    code = {"A": 2, "C": 3, "G": 4, "U": 5}
+    q_enc = torch.tensor([code[c] for c in q], dtype=torch.int64)
+    db_seq = torch.tensor([code[c] for c in d], dtype=torch.int64)
+    g = torch.Generator().manual_seed(7)
+
+    def acc(n):
+        return (torch.rand(n + 8, generator=g) * 0.3).float()
+
+    q_acc, q_cond, db_acc, db_cond = (acc(len(q)), acc(len(q)), acc(len(d)),
+                                      acc(len(d)))
+    q_start = torch.linspace(len(q) // 3, 2 * len(q) // 3, n_hits).long()
+    db_start = torch.linspace(len(d) // 3, 2 * len(d) // 3, n_hits).long()
+    zero = torch.zeros(n_hits, dtype=torch.int64)
+    return (q_start, db_start, db_start.clone(),
+            torch.full((n_hits,), -8.0, dtype=torch.float64),
+            torch.full((n_hits,), 1.0, dtype=torch.float64),
+            torch.ones(n_hits, dtype=torch.bool), zero, zero, zero, zero,
+            zero, q_enc, db_seq, q_acc, q_cond, db_acc, db_cond)
+
+
+def _emu_equals_plain_gapped(lib, args, dtype, **kw):
+    """Both flags: the emulated kernel's integers, floats and traceback
+    lists equal the plain version's; returns the plain version's work
+    counts (summed over both flags) and the overflow flags."""
+    fn = (lib.gapped_extend_f32 if dtype == "float32"
+          else lib.gapped_extend_f64)
+    counts, ovf = {}, []
+    for flag in (0, 1):
+        k = dict(GAPPED_KW, **kw, flag=flag, dtype=dtype)
+        plain = sweep_op.extend_dir_plain(*args, **k, counts=counts)
+        emu = sweep_op._call(fn, args, 0, **k)
+        for name, a, b in zip(("ints", "floats", "tb"), emu, plain):
+            assert torch.equal(a, b), (flag, name)
+        ovf.append(plain[0][:, 3])
+    return counts, torch.cat(ovf)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", ["every_cell_admitted", "periodic"])
+def test_work_list_on_gc_rich_hits_in_emulation(emu_lib, name, dtype):
+    """Diagonals of more combos than the 32-entry list holds, so the list
+    fills and runs several rounds: every band cell admitted (G against C),
+    and a periodic pair where a round holds several cells' runs; the hits
+    run to max_ext 32 and overflow. Bit for bit with the plain version."""
+    counts, ovf = _emu_equals_plain_gapped(emu_lib, _synthetic_args(name),
+                                           dtype)
+    assert counts["combos"] > 32 * counts["diagonals"]   # several rounds
+    assert counts["rounds"] > 2 * counts["diagonals"]
+    assert bool(ovf.all())                                # past max_ext 32
+    if name == "every_cell_admitted":
+        assert counts["admitted"] == counts["band"] > 0
+    else:
+        assert 0 < counts["admitted"] < counts["band"]
+
+
+# the tie rule at the two places where the work list meets equal energies,
+# each turned round in a variant of the source: in one round's lanes (the
+# segmented minimum) and across rounds (the cell lane's merge)
+TIE_RULES = {"lanes": "(ov == v && oq < qc)",
+             "rounds": "(hv == run_min && hq < run_q)"}
+
+
+@pytest.fixture(scope="module")
+def late_libs(tmp_path_factory):
+    """Builds of the source in which the later of two equal combos wins,
+    at each place of TIE_RULES."""
+    src = sweep_op._SRC.read_text()
+    libs = {}
+    for at, old in TIE_RULES.items():
+        assert src.count(old) == 1
+        libs[at] = _emu_build(tmp_path_factory.mktemp(f"late_{at}"),
+                              sweep_op._SRC,
+                              ("gapped_extend_f32", "gapped_extend_f64"),
+                              text=src.replace(old, old.replace(" < ", " > ")))
+    return libs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_work_list_keeps_the_first_minimum_across_lanes_and_rounds(
+        emu_lib, late_libs, dtype):
+    """Equal combo energies whose order decides the tracebacks: the first
+    in stems order must win whether the tied combos meet in one round's
+    lanes or in different rounds. The committed source equals the plain
+    version on these hits, and each build that lets the later combo win at
+    one of the two places does not, so the batch holds ties of both
+    kinds."""
+    args = _synthetic_args("tied", n_hits=3)
+    counts, _ovf = _emu_equals_plain_gapped(emu_lib, args, dtype)
+    assert counts["combos"] > 32 * counts["diagonals"]
+    for at in TIE_RULES:
+        with pytest.raises(AssertionError):
+            _emu_equals_plain_gapped(late_libs[at], args, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_stamped_build_counts_the_plain_versions_work(tmp_path, tiny_hits,
+                                                      dtype):
+    """The -DGAPPED_STAMPS build (gapped_ab.py's split) gives the plain
+    version's bits and counts its work exactly: hits, diagonals, band and
+    admitted cells, combos, rounds, (cell, s) steps and the empty ones, the
+    busiest cell's combos per s, and the admitted cells without a finite
+    predecessor (the stems[0] fallback, which the tiny hits reach), on the
+    tiny-golden hits and the periodic GC-rich ones."""
+    lib = _emu_build(tmp_path, sweep_op._SRC,
+                     ("gapped_extend_f32", "gapped_extend_f64"),
+                     flags=("-DGAPPED_STAMPS",))
+    lib.gapped_extend_stamps.restype = ctypes.c_int
+    lib.gapped_extend_stamps.argtypes = [ctypes.c_void_p]
+    soa, energy, acc, qbufs, dbufs, _stage1 = tiny_hits
+    valid = torch.ones(N_HITS, dtype=torch.bool)
+    tiny = (soa["q_sp"], soa["db_sp"], soa["dbseq_start"] + soa["db_len"] - 1,
+            energy, acc, valid, *(soa[k] for k in ("qb", "qab", "dbb", "aoff",
+                                                  "coff")),
+            qbufs[0], dbufs[0], qbufs[1], qbufs[2], dbufs[1], dbufs[2])
+    out = (ctypes.c_ulonglong * N_STAMPS)()
+    for args in (tiny, _synthetic_args("periodic")):
+        assert lib.gapped_extend_stamps(out) == 0          # cleared
+        counts, _ovf = _emu_equals_plain_gapped(lib, args, dtype)
+        assert lib.gapped_extend_stamps(out) == 0
+        got = dict(zip(STAMP_KEYS, out))
+        assert got.pop("hits") == 2 * len(args[0])
+        assert got == counts
+        assert all(c > 0 for c in out[len(STAMP_KEYS):])   # cycles stamped
+    assert counts["nopred"] > 0
+    assert lib.gapped_extend_stamps(out) == 0 and not any(out)
 
 
 @pytest.mark.parametrize("dropout", [5, 2])
