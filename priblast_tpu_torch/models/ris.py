@@ -128,7 +128,10 @@ def _run(p: RisParams, threads: int | None, pidx: int, pcount: int,
         devices = dist.device_list(devices)
     p.load_db_params()
     names, seqs = fasta.read_fasta(p.input)
-    chunks = store.load_chunks(p.db_name, p.hash_size)
+    with prof.stage("ris.load"):
+        chunks = store.load_chunks(p.db_name, p.hash_size)
+    prof.count("ris.db_pages", len(chunks))
+    prof.count("ris.db_nt", sum(int(c.seq_sizes.sum()) for c in chunks))
     order = [int(i) for i in native.argsort_desc([len(s) for s in seqs])]
     if pcount > 1:
         # this process's query shard by the -a distribution strategy

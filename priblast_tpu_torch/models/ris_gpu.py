@@ -144,19 +144,58 @@ def _calibrate(side: str, n_pairs: int, wall_s: float) -> None:
         0.5 * _CAL[side] + 0.5 * rate
 
 
-def _wave_plan(order, lengths, max_nt: int = 4 << 20, max_q: int = 1024):
+# The wave budget: query nt x database nt that one pass of the device chain
+# (a wave of queries against a group of pages) may hold. The host arrays of
+# a pass (the seed candidates, the fused stage's records, the stream after
+# the threshold with its pre_* copies, the base pairs) grow with its
+# candidate pairs, and those with query nt x database nt. On the host of an
+# NVIDIA H100 80GB HBM3 (700 W; 96 GiB, 8 cores) the peak resident memory
+# over a job of the device chain, less that before it, was 0.079-0.103 B
+# per (query nt x target nt), ~65 B per candidate pair: 8 jobs of 2-32
+# lncRNA-like queries (1,908-32,428 nt) against 1 and 8 pages of 500
+# mRNA-like targets (1.5 and 12.1 Mnt), 2.0e10-3.9e11 nt^2 a job. 16 GiB,
+# a sixth of that host, over the largest reading is 1.67e11, rounded down.
+# A rank's job of hundreds of 1 kb queries against a few hundred pages
+# (~300 Mnt) holds 1e14 and more.
+WAVE_NT2 = 160_000_000_000
+
+
+def _wave_plan(order, lengths, db_nt: int = 0, budget: float = WAVE_NT2,
+               max_nt: int = 4 << 20, max_q: int = 1024):
     """Split queries (descending-length order) into waves bounded by total
-    nucleotides and count, so flat device buffers stay bounded."""
+    nucleotides and count, so flat device buffers stay bounded, and by
+    total nucleotides x `db_nt` (the database's) <= `budget`; a wave holds
+    at least one query."""
+    cap = min(max_nt, budget // max(db_nt, 1))
     wave: list[int] = []
     nt = 0
     for idx in order:
-        if wave and (nt + lengths[idx] > max_nt or len(wave) >= max_q):
+        if wave and (nt + lengths[idx] > cap or len(wave) >= max_q):
             yield wave
             wave, nt = [], 0
         wave.append(idx)
         nt += lengths[idx]
     if wave:
         yield wave
+
+
+def _page_groups(page_nt, wave_nt: int, budget: float = WAVE_NT2):
+    """The pages (their nt in page order) in runs searched in turn against
+    a wave of `wave_nt` query nt, each run's nt x wave_nt within `budget`;
+    a run holds at least one page. One run of every page wherever the wave
+    fits the budget against the whole database."""
+    groups: list[list[int]] = []
+    run: list[int] = []
+    nt = 0
+    for cid, n in enumerate(page_nt):
+        if run and (nt + n) * wave_nt > budget:
+            groups.append(run)
+            run, nt = [], 0
+        run.append(cid)
+        nt += n
+    if run:
+        groups.append(run)
+    return groups
 
 
 def _accessibility_batched(engine, seqs, lengths, idxs):
@@ -180,12 +219,16 @@ def _accessibility_batched(engine, seqs, lengths, idxs):
 
 
 def run_queries(p: RisParams, chunks, names, seqs, order, results, *,
-                devices, threads: int | None = None) -> None:
+                devices, threads: int | None = None,
+                budget: float = WAVE_NT2) -> None:
     """Fill results[idx] with the formatted lines of every query idx in
     `order`: accessibility split over `devices` (one device or a list),
     then each wave's queries routed over the device chain (its device
     stages split over `devices`) and the host chain
-    (device_extend_mode)."""
+    (device_extend_mode). Waves hold at most `budget` query nt x database
+    nt; a wave of one query over the budget searches the pages in runs
+    (_page_groups), in page order, so each query's lines keep the
+    reference's order: query, then page."""
     from priblast_tpu_torch.accessibility.batched import BatchedRaccess
     from priblast_tpu_torch.search import pipeline as pl
 
@@ -195,23 +238,33 @@ def run_queries(p: RisParams, chunks, names, seqs, order, results, *,
     native.lib()
     threads = threads or min(32, os.cpu_count() or 1)
     lengths = [len(s) for s in seqs]
+    page_nt = [len(c.seqs) for c in chunks]
     mode = device_extend_mode()
     dbpack = None
     done_q, t_start = 0, time.perf_counter()
-    for wave in _wave_plan(order, lengths):
+    for wave in _wave_plan(order, lengths, sum(page_nt), budget):
         with prof.stage("ris.accessibility", devices):
             accs = _accessibility_batched(engine, seqs, lengths, wave)
         queries = []
         for idx in wave:
             q_enc = alphabet.encode_query(seqs[idx], p.repeat_flag)
             queries.append((q_enc, native.sa_build(q_enc), *accs[idx]))
-        split = route(p, chunks, queries, mode, devices, threads)
-        if split[1] and dbpack is None:
-            dbpack = pl.DbPack(chunks, devices=devices)
-        found = _search_wave(p, chunks, [names[i] for i in wave],
-                             queries, split, dbpack, devices, threads)
-        for qid, lines in found.items():
-            results[wave[qid]] = lines
+            results[idx] = []
+        wave_nt = sum(lengths[idx] for idx in wave)
+        for cids in _page_groups(page_nt, wave_nt, budget):
+            prof.count("ris.waves")
+            pages = [chunks[c] for c in cids]
+            split = route(p, pages, queries, mode, devices, threads)
+            if split[1] and dbpack is None:
+                with prof.stage("ris.dbpack"):
+                    dbpack = pl.DbPack(chunks, devices=devices)
+                prof.count("ris.dbpack.bytes", dbpack.device_bytes())
+            found = _search_wave(p, pages, [names[i] for i in wave],
+                                 queries, split,
+                                 None if dbpack is None
+                                 else dbpack.pages(cids), devices, threads)
+            for qid, lines in found.items():
+                results[wave[qid]].extend(lines)
         done_q += len(wave)
         if os.environ.get("PRIBLAST_PROGRESS"):
             el = max(time.perf_counter() - t_start, 1e-9)

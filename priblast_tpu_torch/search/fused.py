@@ -239,6 +239,7 @@ def fused_stage(p, cands, qpack, dbpack, *, devices,
     devices = dist.device_list(devices)
     with prof.stage("ris.fused.pack", devices):
         wb = _WaveBuffers(cands, qpack, dbpack, devices)
+    prof.count("ris.fused.pairs", wb.tot)
     return run_blocks(p, wb, qpack, dbpack, devices, block)
 
 

@@ -90,6 +90,12 @@ class OnDevices:
         view.__dict__.update(self._copies[dist.device_list(device)[0]])
         return view
 
+    def device_bytes(self) -> int:
+        """The bytes of the copies, summed over the distinct devices."""
+        return sum(t.nbytes for put in self._copies.values()
+                   for v in put.values()
+                   for t in (v if isinstance(v, tuple) else (v,)))
+
 
 class QueryPack(OnDevices):
     """Flat device buffers for a set of queries: encoded sequences (int64
@@ -147,6 +153,20 @@ class DbPack(OnDevices):
             assert np.array_equal(base, self.seq_base)
             host[f"pos_{k}"] = flat
         self._place(host, devices)
+
+    def pages(self, cids):
+        """A view of the pack as the database of pages `cids` alone (page i
+        of the view is page cids[i]), on the same device buffers: the
+        search of a group of pages. The pack itself where `cids` is every
+        page in order."""
+        if list(cids) == list(range(len(self.seq_base))):
+            return self
+        view = copy.copy(self)
+        view.seq_base = self.seq_base[cids]
+        view.sa_base = self.sa_base[cids]
+        view.abs_acc_off = [self.abs_acc_off[c] for c in cids]
+        view.abs_cond_off = [self.abs_cond_off[c] for c in cids]
+        return view
 
 
 @dataclass

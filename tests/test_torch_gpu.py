@@ -8,6 +8,9 @@ JAX it runs as
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu
 """
 
+import json
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -204,6 +207,12 @@ def test_ris_gpu_engine_on_the_card(tmp_path, monkeypatch):
     assert sweep_op.launches > before[0]
     assert ungapped_op.launches > before[1]
     got = out.read_text().splitlines()
+    _same_golden_hits(got)
+
+
+def _same_golden_hits(got):
+    """The tiny golden's hits and base pairs, energies within the float32
+    engine's 2e-3 (the header names paths, so it is not compared)."""
     gold = (GOLDEN / "tiny" / "predictions.txt").read_text().splitlines()
     assert len(got) == len(gold)
     for lg, lt in zip(gold[3:], got[3:]):
@@ -211,6 +220,131 @@ def test_ris_gpu_engine_on_the_card(tmp_path, monkeypatch):
         assert fg[:5] == ft[:5] and fg[8:] == ft[8:]
         assert all(abs(float(a) - float(b)) < 2e-3
                    for a, b in zip(fg[5:8], ft[5:8]))
+
+
+def _ris_lines(db_name, queries, out, device):
+    cli.main(["ris", "-i", str(queries), "-o", str(out), "-d", db_name,
+              "--device", device])
+    return out.read_text().splitlines()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data,pages", [("tiny", 3), ("small", 13)])
+def test_paged_db_on_the_card(tmp_path, monkeypatch, data, pages):
+    """The device chain against the goldens' targets in pages of `pages`
+    sequences (tiny: 3 pages, small: 4): the card's lines are those of
+    the one-page database byte for byte; on the tiny set they hold the
+    golden hits and are the CPU run's byte for byte. (The small golden was
+    made with other db parameters.)"""
+    _card()
+    monkeypatch.setenv("PRIBLAST_DEVICE_EXTEND", "1")
+    dbs = {}
+    for name, size in (("paged", pages), ("one", DbParams.chunk_size)):
+        dbs[name] = str(tmp_path / name)
+        tdb.run(DbParams(input=str(DATA / f"{data}_db.fa"),
+                         db_name=dbs[name], engine="exact",
+                         chunk_size=size))
+    assert len(store.load_chunks(dbs["paged"], 8)) == (3 if data == "tiny"
+                                                       else 4)
+    q = DATA / f"{data}_q.fa"
+    paged = _ris_lines(dbs["paged"], q, tmp_path / "paged.txt", "cuda")
+    one = _ris_lines(dbs["one"], q, tmp_path / "one.txt", "cuda")
+    # line 2 names the database
+    assert paged[2:] == one[2:] and len(paged) > 3
+    if data == "tiny":
+        _same_golden_hits(paged)
+        cpu = _ris_lines(dbs["paged"], q, tmp_path / "cpu.txt", "cpu")
+        assert paged == cpu
+
+
+_BUDGET_CHILD = """
+import json, os, sys, threading
+import torch
+from priblast_tpu_torch.models import ris_gpu
+from priblast_tpu_torch.utils import fasta, store
+from priblast_tpu_torch.utils import profiling as prof
+from priblast_tpu_torch.utils.params import RisParams
+
+db, queries, out, budget = sys.argv[1:5]
+os.environ["PRIBLAST_DEVICE_EXTEND"] = "1"
+dev = torch.device("cuda")
+p = RisParams(input=queries, output=out, db_name=db)
+p.load_db_params()
+chunks = store.load_chunks(db, p.hash_size)
+names, seqs = fasta.read_fasta(queries)
+order = sorted(range(len(seqs)), key=lambda i: -len(seqs[i]))
+warm = [None]
+ris_gpu.run_queries(p, chunks, ["w"], ["ACGU" * 60], [0], warm, devices=dev)
+page = os.sysconf("SC_PAGE_SIZE")
+
+def rss():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * page
+
+base, peak, done = rss(), [0], threading.Event()
+
+def sample():
+    while not done.wait(0.002):
+        peak[0] = max(peak[0], rss())
+
+th = threading.Thread(target=sample)
+th.start()
+prof.reset()
+results = [None] * len(seqs)
+ris_gpu.run_queries(p, chunks, names, seqs, order, results, devices=dev,
+                    budget=float(budget))
+done.set()
+th.join()
+with open(out, "w") as f:
+    f.writelines(line + "\\n" for i in order for line in results[i])
+print(json.dumps({"waves": prof.counters()["ris.waves"],
+                  "peak": max(peak[0], rss()) - base}))
+"""
+
+
+@pytest.mark.gpu
+def test_wave_budget_binds_on_the_card(tmp_path):
+    """A 16-query job against 8 pages of 500 mRNA-like targets (~12 Mnt),
+    each run in a process of its own: under a budget of an eighth of the
+    job's query nt x database nt, the waves split (the long queries into
+    groups of pages too), the lines are those of the run under no budget
+    byte for byte, and the host's peak over the search is lower (12.1 GB
+    against 2.1 GB on an H100's host)."""
+    _card()
+    rng = np.random.default_rng(2301)
+    bases = np.frombuffer(b"ACGU", np.uint8)
+
+    def fasta_of(path, prefix, median, sigma, lo, hi, n):
+        lens = np.clip(np.round(median * np.exp(
+            sigma * rng.standard_normal(n))), lo, hi).astype(int)
+        seqs = [bases[rng.integers(0, 4, k)].tobytes().decode()
+                for k in lens]
+        path.write_text("".join(f">{prefix}{i}\n{sq}\n"
+                                for i, sq in enumerate(seqs)))
+        return int(lens.sum())
+
+    db_nt = fasta_of(tmp_path / "db.fa", "t", 2500, 0.6, 200, 20000, 4000)
+    q_nt = fasta_of(tmp_path / "q.fa", "q", 800, 0.7, 200, 10000, 16)
+    db_name = str(tmp_path / "db")
+    tdb.run(DbParams(input=str(tmp_path / "db.fa"), db_name=db_name,
+                     chunk_size=500, device="cuda"))
+    assert len(store.load_chunks(db_name, 8)) == 8
+    budget = q_nt * db_nt / 8
+    got = {}
+    for b in (float("inf"), budget):
+        out = tmp_path / f"out_{b}.txt"
+        r = subprocess.run(
+            [sys.executable, "-c", _BUDGET_CHILD, db_name,
+             str(tmp_path / "q.fa"), str(out), str(b)],
+            cwd=TESTS.parent, capture_output=True, text=True, timeout=900)
+        assert r.returncode == 0, r.stderr[-4000:]
+        got[b] = json.loads(r.stdout.strip().splitlines()[-1])
+        got[b]["body"] = out.read_bytes()
+        print(b, {k: v for k, v in got[b].items() if k != "body"})
+    free = got[float("inf")]
+    assert free["waves"] == 1 and got[budget]["waves"] > 8
+    assert got[budget]["body"] == free["body"] and free["body"]
+    assert got[budget]["peak"] < free["peak"]
 
 
 @pytest.mark.gpu

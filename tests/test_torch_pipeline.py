@@ -34,10 +34,22 @@ def staged(tmp_path_factory, data_dir):
     return build_staged(tmp_path_factory.mktemp("torch_pipeline"), data_dir)
 
 
+@pytest.fixture(scope="module")
+def paged(tmp_path_factory, data_dir):
+    """The tiny db in pages of 3 sequences: 3 pages."""
+    return build_staged(tmp_path_factory.mktemp("torch_pipeline_paged"),
+                        data_dir, chunk_size=3)
+
+
 def _check_against_native_chain(chunks, p, queries, stream, finished,
                                 max_ext):
-    assert len(finished) == len(stream.groups) == len(queries)
-    checked = 0
+    """Every (query, page) group, query-major, equal to the native chain
+    on its page; returns the pages whose groups held hits."""
+    assert len(finished) == len(stream.groups)
+    assert [(qid, cid) for qid, cid, _lo, _hi in stream.groups] == \
+        [(qid, cid) for qid in range(len(queries))
+         for cid in range(len(chunks))]
+    checked, hit_pages = 0, set()
     for (qid, cid, _lo, _hi), out in zip(stream.groups, finished):
         q_enc, q_sa, q_acc, q_cond = queries[qid]
         full = native.search_chunk(q_enc, q_sa, q_acc, q_cond, chunks[cid],
@@ -46,9 +58,12 @@ def _check_against_native_chain(chunks, p, queries, stream, finished,
             assert np.array_equal(out[k], full[k]), k
         np.testing.assert_allclose(out["energy"], full["energy"], atol=3e-4)
         checked += len(full["q_sp"])
+        if len(full["q_sp"]):
+            hit_pages.add(cid)
     assert checked > 0
     if max_ext == 8:
         assert (stream.soa["q_len"] != stream.soa["pre_q_len"]).any()
+    return hit_pages
 
 
 @pytest.mark.parametrize("max_ext", [32, 8])
@@ -69,17 +84,26 @@ def test_search_all_matches_native_chain(staged, max_ext):
                                 max_ext)
 
 
-@pytest.mark.parametrize("max_ext", [32, 8])
-def test_search_all_fused_matches_native_chain(staged, max_ext):
+@pytest.mark.parametrize("max_ext,db", [
+    pytest.param(32, "staged", id="32"), pytest.param(8, "staged", id="8"),
+    pytest.param(32, "paged", id="32-3pages"),
+    pytest.param(8, "paged", id="8-3pages")])
+def test_search_all_fused_matches_native_chain(request, max_ext, db):
     """search_all, whose front is the fused stage; the same limits as the
-    staged oracle."""
-    chunks, p, queries, qpack, dbpack, _pres, _posts = staged
+    staged oracle. On the 3-page db every (query, page) group goes through
+    DbPack's per-page bases and the pools' per-page groups, and the
+    finished hits lie on a page after the first."""
+    chunks, p, queries, qpack, dbpack, _pres, _posts = \
+        request.getfixturevalue(db)
+    assert len(chunks) == (3 if db == "paged" else 1)
     prof.reset()
     stream, finished = tpl.search_all(p, chunks, queries, qpack, dbpack,
                                       devices=CPU, dtype="float64",
                                       max_ext=max_ext)
-    _check_against_native_chain(chunks, p, queries, stream, finished,
-                                max_ext)
+    hit_pages = _check_against_native_chain(chunks, p, queries, stream,
+                                            finished, max_ext)
+    if db == "paged":
+        assert max(hit_pages) > 0
     stages = prof.snapshot()
     assert {"ris.seed", "ris.fused", "ris.fused.expand", "ris.fused.ungapped",
             "ris.mid", "ris.gapped", "ris.finish"} <= set(stages)

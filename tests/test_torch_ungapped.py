@@ -30,12 +30,14 @@ CPU = torch.device("cpu")
 INT_KEYS = ("q_sp", "db_sp", "q_len", "db_len", "dbseq_start", "dbseq_id")
 
 
-def build_staged(tmp, data_dir):
-    """Tiny db built by the port's exact engine; per query its native
-    stage-1 (post seed expansion) and stage-2 (post ungapped) hits."""
+def build_staged(tmp, data_dir, chunk_size: int = DbParams.chunk_size):
+    """Tiny db built by the port's exact engine, in pages of `chunk_size`
+    sequences; per query its native stage-1 (post seed expansion) and
+    stage-2 (post ungapped) hits on the first page."""
     db_name = str(tmp / "tiny_db")
     tdb.run(DbParams(input=str(data_dir / "tiny_db.fa"), db_name=db_name,
-                     algorithm="block", engine="exact"))
+                     algorithm="block", engine="exact",
+                     chunk_size=chunk_size))
     chunks = store.load_chunks(db_name, 8)
     p = RisParams(input="x", output="y", db_name=db_name, algorithm="block",
                   engine="exact")
