@@ -92,7 +92,8 @@ def main() -> int:
         plans over sequences `idxs` (in its own order)."""
         out = {}
         for group, bsz, padded in db_gpu.plan_batches(
-                [lengths[i] for i in idxs]):
+                [lengths[i] for i in idxs],
+                db_gpu.batch_limits([dev], w + 2, torch.float32)):
             codes = np.zeros((bsz, padded), np.uint8)
             lens = np.zeros(bsz, np.int32)
             for bi, k in enumerate(group):

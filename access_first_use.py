@@ -68,7 +68,8 @@ def child(work: Path, fa: str) -> None:
     _names, seqs = fasta.read_fasta(work / fa)
     lengths = [len(s) for s in seqs]
     batches = []
-    for group, bsz, padded in db_gpu.plan_batches(lengths):
+    limits = db_gpu.batch_limits([dev], band, dt)
+    for group, bsz, padded in db_gpu.plan_batches(lengths, limits):
         codes = np.zeros((bsz, padded + ab.ML + 4), np.int64)
         for bi, idx in enumerate(group):
             codes[bi, 1: lengths[idx] + 1] = alphabet.access_codes(seqs[idx])

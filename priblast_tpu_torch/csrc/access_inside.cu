@@ -674,6 +674,27 @@ int launch(void *const *ptrs, const long long *sizes, const double *scalars,
   return (int)cudaGetLastError();
 }
 
+// The CTAs of inside_kernel<T> that the card holds at once at `threads`
+// per CTA and the shared memory of band `band`: its SMs times the CTAs an
+// SM holds (0 where none fits); a CUDA error as its negative
+template <typename T>
+int slots(int band, int ml, int threads) {
+  const size_t bytes = (size_t)layout(band, ml).total * sizeof(T);
+  int dev = 0, sms = 0, per_sm = 0;
+  auto kern = inside_kernel<T>;
+  cudaError_t e = (cudaError_t)cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = (cudaError_t)cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      bytes);
+  return e == cudaSuccess ? sms * per_sm : -(int)e;
+}
+
 }  // namespace
 
 extern "C" int access_inside_f32(void *const *ptrs, const long long *sizes,
@@ -684,6 +705,16 @@ extern "C" int access_inside_f32(void *const *ptrs, const long long *sizes,
 extern "C" int access_inside_f64(void *const *ptrs, const long long *sizes,
                                  const double *scalars, void *stream) {
   return launch<double>(ptrs, sizes, scalars, stream);
+}
+
+// sizes: band, ML, threads per CTA; the CTAs of the kernel the current
+// device holds at once (slots<T>)
+extern "C" int access_inside_slots_f32(const long long *sizes) {
+  return slots<float>((int)sizes[0], (int)sizes[1], (int)sizes[2]);
+}
+
+extern "C" int access_inside_slots_f64(const long long *sizes) {
+  return slots<double>((int)sizes[0], (int)sizes[1], (int)sizes[2]);
 }
 
 #ifdef ACCESS_STAMPS

@@ -201,21 +201,10 @@ def _page_groups(page_nt, wave_nt: int, budget: float = WAVE_NT2):
 def _accessibility_batched(engine, seqs, lengths, idxs):
     """Device accessibility for the given query indices; returns
     {idx: (acc, cond)} float32 arrays of per-sequence length."""
-    out = {}
-    for group, bsz, padded in db_gpu.plan_batches(
-            [lengths[i] for i in idxs]):
-        codes = np.zeros((bsz, padded), np.uint8)
-        lens = np.zeros(bsz, np.int32)
-        sel = [idxs[g] for g in group]
-        for bi, idx in enumerate(sel):
-            codes[bi, : lengths[idx]] = alphabet.access_codes(seqs[idx])
-            lens[bi] = lengths[idx]
-        acc, cond = engine.run(codes, lens)
-        for bi, idx in enumerate(sel):
-            ln = lengths[idx]
-            out[idx] = (np.ascontiguousarray(acc[bi, :ln]),
-                        np.ascontiguousarray(cond[bi, :ln]))
-    return out
+    return {idx: (np.ascontiguousarray(acc[: lengths[idx]]),
+                  np.ascontiguousarray(cond[: lengths[idx]]))
+            for idx, acc, cond in db_gpu.run_planned(engine, seqs, lengths,
+                                                     idxs)}
 
 
 def run_queries(p: RisParams, chunks, names, seqs, order, results, *,

@@ -64,12 +64,36 @@ def _lib(name: str) -> ctypes.CDLL:
         fn = getattr(lib, f"access_{name}_{dt}")
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4
+        fn = getattr(lib, f"access_{name}_slots_{dt}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p]
     return lib
 
 
 def _fn(name: str, dtype):
     dt = "f64" if dtype == torch.float64 else "f32"
     return getattr(_lib(name), f"access_{name}_{dt}")
+
+
+@functools.lru_cache(maxsize=None)
+def slots(device, dtype, band: int) -> int:
+    """The CTAs of both scan kernels that the card `device` holds at once
+    at their threads per CTA and the shared memory of `band` in `dtype`:
+    the lesser of the two kernels' counts (SMs x CTAs per SM). Read once
+    per card, dtype and band."""
+    dt = "f64" if dtype == torch.float64 else "f32"
+    counts = []
+    with torch.cuda.device(device):
+        for name, threads in (("inside", THREADS),
+                              ("outside", OUTSIDE_THREADS)):
+            sizes = (ctypes.c_longlong * 3)(band, ab.ML, threads)
+            n = getattr(_lib(name), f"access_{name}_slots_{dt}")(sizes)
+            if n <= 0:
+                raise RuntimeError(
+                    f"access_{name} on {device}: "
+                    + (f"CUDA error {-n}" if n else "no CTA fits an SM"))
+            counts.append(n)
+    return min(counts)
 
 
 def _check_grids(grids, shape, dtype, device) -> None:

@@ -63,6 +63,34 @@ def local_devices(device: str, pidx: int = 0, pcount: int = 1) -> list:
     return [torch.device("cuda", pidx % n_cards)]
 
 
+def card_sharers(pidx: int, pcount: int, hosts=None) -> int:
+    """The processes of `pcount` that share process `pidx`'s card under
+    local_devices' rule: 1 where each takes cards of its own, else those
+    on its host whose index falls on its card. `hosts` names each
+    process's host (one host where None)."""
+    n_cards = torch.cuda.device_count()
+    if n_cards >= pcount:
+        return 1
+    hosts = hosts or [None] * pcount
+    return sum(hosts[q] == hosts[pidx] and q % n_cards == pidx % n_cards
+               for q in range(pcount))
+
+
+def card_budget(device, frac: float, *, spare: bool = False) -> int:
+    """Bytes of the card `device` that a batch may take: `frac` of its
+    memory, or with `spare` of what it can still give this process (its
+    free memory and the blocks PyTorch's allocator holds unused, so that
+    what earlier batches left cached does not shrink the budget). 0 off a
+    card."""
+    if device.type != "cuda":
+        return 0
+    free, total = torch.cuda.mem_get_info(device)
+    if spare:
+        total = (free + torch.cuda.memory_reserved(device)
+                 - torch.cuda.memory_allocated(device))
+    return int(total * frac)
+
+
 def device_list(devices) -> list:
     """`devices` (one device or name, or a list of them) as a list of
     torch devices, each card with its index."""

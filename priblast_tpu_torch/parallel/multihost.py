@@ -28,11 +28,17 @@ from __future__ import annotations
 
 import datetime
 import os
+import socket
 from pathlib import Path
 
 import numpy as np
 
+from priblast_tpu_torch.parallel import dist as pdist
 from priblast_tpu_torch.utils import fasta
+
+# each process's host name, by index, while a group joined by
+# init_from_env is up
+_HOSTS: list[str] = []
 
 
 def init_from_env() -> tuple[int, int]:
@@ -52,6 +58,9 @@ def init_from_env() -> tuple[int, int]:
             rank=int(os.environ["PRIBLAST_PROC_ID"]), world_size=nprocs,
             timeout=datetime.timedelta(seconds=float(
                 os.environ.get("PRIBLAST_DIST_TIMEOUT", "1800"))))
+        hosts = [None] * nprocs
+        dist.all_gather_object(hosts, socket.gethostname())
+        _HOSTS[:] = hosts
     return dist.get_rank(), dist.get_world_size()
 
 
@@ -62,6 +71,19 @@ def shutdown() -> None:
 
     if dist.is_initialized():
         dist.destroy_process_group()
+    _HOSTS.clear()
+
+
+def card_sharers() -> int:
+    """The processes of the run's group that share this process's card
+    (dist.card_sharers, by the hosts gathered when the group was joined);
+    1 without a group."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return pdist.card_sharers(dist.get_rank(), dist.get_world_size(),
+                              _HOSTS or None)
 
 
 def barrier(name: str) -> None:

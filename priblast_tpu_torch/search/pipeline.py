@@ -265,9 +265,9 @@ def _batch_cap(device, bytes_per_item: int, frac: float, lo: int,
     bounds memory: results do not depend on the cap."""
     if device.type != "cuda":
         return lo
-    _free, total = torch.cuda.mem_get_info(device)
+    budget = dist.card_budget(device, frac)
     cap = lo
-    while cap * 2 <= hi and bytes_per_item * cap * 2 <= total * frac:
+    while cap * 2 <= hi and bytes_per_item * cap * 2 <= budget:
         cap *= 2
     return cap
 

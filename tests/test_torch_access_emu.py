@@ -26,6 +26,7 @@ not replace the comparison on the card (tests/test_torch_gpu.py,
 chip_smoke.py).
 """
 
+import ctypes
 from pathlib import Path
 
 import numpy as np
@@ -261,3 +262,16 @@ def test_inside_kernel_at_256_threads_window_energies(inside_256):
         assert np.isfinite(ee).all()
         assert np.abs(ee - ep).max() <= TOL[dtype][1]
 
+
+
+@pytest.mark.parametrize("kernel", [0, 1])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_slots_entry_points_count_ctas_per_sm(emu_libs, kernel, dt):
+    """The slots entry points: SMs times the CTAs an SM holds, from the
+    emulator's SM count (3) and occupancy (one CTA of a single warp, none
+    larger)."""
+    name = ("access_inside", "access_outside")[kernel]
+    fn = getattr(emu_libs[kernel], f"{name}_slots_{dt}")
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p]
+    for threads, want in ((32, 3), (acs.THREADS, 0)):
+        assert fn((ctypes.c_longlong * 3)(BAND, ab.ML, threads)) == want

@@ -21,6 +21,7 @@ import ungapped_cases as uc
 from priblast_tpu_torch import cli
 from priblast_tpu_torch.accessibility import batched as ab
 from priblast_tpu_torch.models import db as tdb
+from priblast_tpu_torch.models import db_gpu
 from priblast_tpu_torch.ops import access_grids as ag
 from priblast_tpu_torch.ops import access_prob as ap
 from priblast_tpu_torch.ops import access_scan as acs
@@ -374,6 +375,45 @@ def test_accessibility_does_not_depend_on_the_batch_on_the_card(dtype):
     for (a1, c1), (a2, c2) in zip(*got):
         assert a1.tobytes() == a2.tobytes()
         assert c1.tobytes() == c2.tobytes()
+
+
+@pytest.mark.gpu
+def test_batches_filled_to_the_slots_match_the_plain_plan_on_the_card(
+        monkeypatch):
+    """A 320-row mRNA-like page through db_gpu.compute_accessibilities
+    under the plain plan (no limits), the card's limits and limits of 100
+    slots (batches of 100 rows, as the card's are of 132 on the H100): the
+    same acc and cond bytes, and one launch of each scan per planned
+    batch."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    lens = [int(n) for n in np.clip(rng.lognormal(np.log(2500), 0.6, 320),
+                                    200, 20000)]
+    seqs = ["".join(rng.choice(list("ACGU"), n)) for n in lens]
+    card_limits = db_gpu.batch_limits
+    got = {}
+    for name, pick in (("plain", lambda lim: None), ("card", lambda lim: lim),
+                       ("100", lambda lim: lim._replace(slots=100))):
+        seen = []
+
+        def limits(*a, pick=pick, seen=seen):
+            seen.append(pick(card_limits(*a)))
+            return seen[-1]
+
+        monkeypatch.setattr(db_gpu, "batch_limits", limits)
+        i0, o0 = acs.inside_launches, acs.outside_launches
+        accs, conds = db_gpu.compute_accessibilities(seqs, 70, 5,
+                                                     devices=dev)
+        plan = list(db_gpu.plan_batches(lens, seen[0]))
+        assert acs.inside_launches - i0 == len(plan)
+        assert acs.outside_launches - o0 == len(plan)
+        got[name] = (accs, conds, [bsz for _, bsz, _ in plan])
+    assert len(got["card"][2]) < len(got["plain"][2])
+    assert 100 in got["100"][2]
+    for name in ("card", "100"):
+        for a, b in zip(got[name][0] + got[name][1],
+                        got["plain"][0] + got["plain"][1]):
+            assert a.tobytes() == b.tobytes()
 
 
 def _sweep_args(B=3, max_ext=8, dropout=4, dtype=torch.float32):
