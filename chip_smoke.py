@@ -70,17 +70,10 @@ Phases (any failure ends the run with a non-zero exit code):
   4h. host-extend: `ris` with PRIBLAST_DEVICE_EXTEND=0 (device
      accessibility, then the host chain): its body equals phase 4a's host
      chain byte for byte, and no extension kernel runs;
-  4i. hybrid: `ris` with the router in auto and its hybrid split forced
-     on (PRIBLAST_HYBRID=1; its default keeps the hybrid off where the
-     device chain alone wins): per wave, each side's queries, pairs and
-     wall, the rates before and after calibration, q/s; the split equals
-     split_wave recomputed from the printed pairs and rates, the extension
-     kernels ran if and only if the device side had queries, and the body
-     agrees with the main path's as the device chain agrees with the host
-     chain; then `ris` in the router's defaults: per wave the chains it
-     chose (every query to the device chain where device_extend_wins says
-     it wins alone), the wall, and the body against the main path's as
-     above, with its sha256;
+  4i. default: `ris` in the router's defaults: per wave the chain it
+     chose (the whole wave to the chain device_extend_wins picks), the
+     wall, and the body against the main path's as the device chain
+     agrees with the host chain, with its sha256;
   4j. multiproc: two processes of `python -m priblast_tpu_torch` on this
      card (torch.distributed, gloo): `db --engine gpu -a block`, then
      `ris --engine gpu -a area` on the device chain; the db files and the
@@ -102,9 +95,9 @@ Phases (any failure ends the run with a non-zero exit code):
      traceback) against its plain PyTorch version on the card: on the
      inputs of the main path's first launch (its own batch shape, whose
      times go into the kernels' record), and on real mid-stage hits of
-     phase 3 as a ragged 4096+37 batch in float32 and float64 and at
-     max_ext=64; each with its time, the plain version's time and the
-     card's least time for the same work;
+     phase 3 as a ragged 4096+37 batch in float32 and float64; each with
+     its time, the plain version's time and the card's least time for the
+     same work;
   6. the ungapped kernel (a thread per hit) against its plain version on
      the card, the same way: the main path's first launch, its first
      4096+37 stage-1 hits, its first 20, and a mixed batch (its 1,024 hits
@@ -1903,73 +1896,8 @@ def main() -> int:
           "an extension kernel ran with PRIBLAST_DEVICE_EXTEND=0")
     scans_ran("host-extend")
 
-    # ---- 4i. ris with the hybrid split (forced: the router's default
-    # keeps it off where the device chain alone wins), then ris in the
-    # router's default
-    os.environ["PRIBLAST_HYBRID"] = "1"
-    splits = []
-    split0, cal0 = ris_gpu.split_wave, ris_gpu._calibrate
-
-    def split_rec(pairs_by_q, threads_, n_dev):
-        hd = split0(pairs_by_q, threads_, n_dev)
-        splits.append(dict(pairs=dict(pairs_by_q), threads=threads_,
-                           n_dev=n_dev, hr=ris_gpu._host_rate(threads_),
-                           dr=ris_gpu._dev_rate(n_dev), split=hd))
-        return hd
-
-    def cal_rec(side, n, wall):
-        # each side of a wave calibrates once, the device side on its own
-        # thread; after the later of the two, "cal" holds both
-        cal0(side, n, wall)
-        splits[-1].setdefault("wall", {})[side] = wall
-        splits[-1]["cal"] = dict(ris_gpu._CAL)
-
-    ris_gpu._CAL.update(host=None, dev=None)
-    ris_gpu.split_wave, ris_gpu._calibrate = split_rec, cal_rec
-    out_hyb = work / "ris_hybrid.txt"
-    try:
-        t_hy = run_ris("auto", out_hyb)
-    finally:
-        ris_gpu.split_wave, ris_gpu._calibrate = split0, cal0
-        os.environ.pop("PRIBLAST_HYBRID", None)
-    check(len(splits) >= 1, "the hybrid split never ran")
-    any_dev = False
-    for wi, sp in enumerate(splits):
-        host_q, dev_q = sp["split"]
-        any_dev |= bool(dev_q)
-        walls_w = sp.get("wall", {})
-        print(f"[hybrid] wave {wi}: host {len(host_q)} queries "
-              f"{sum(sp['pairs'][q] for q in host_q)} pairs wall "
-              f"{walls_w.get('host')} s; device {len(dev_q)} queries "
-              f"{sum(sp['pairs'][q] for q in dev_q)} pairs wall "
-              f"{walls_w.get('dev')} s; rates at the split host "
-              f"{sp['hr']:.1f} device {sp['dr']:.1f} pairs/s (dispatch "
-              f"{ris_gpu.DEV_DISPATCH_S} s, {sp['threads']} threads); "
-              f"calibrated {json.dumps(sp.get('cal'))} {tag}", flush=True)
-        saved = dict(ris_gpu._CAL)
-        ris_gpu._CAL.update(host=sp["hr"], dev=sp["dr"])
-        again = ris_gpu.split_wave(sp["pairs"], sp["threads"], sp["n_dev"])
-        ris_gpu._CAL.update(saved)
-        check(again == sp["split"], f"wave {wi}: the split differs from "
-              "split_wave on the printed pairs and rates")
-    check((uop.launches > 0) == any_dev and (gapped_sweep.launches > 0)
-          == any_dev and all((n > 0) == any_dev
-                             for n in fused_counts().values()),
-          f"extension kernels launched (ungapped {uop.launches}, "
-          f"gapped {gapped_sweep.launches}, {json.dumps(fused_counts())}) "
-          f"but the device side had {'some' if any_dev else 'no'} queries")
-    scans_ran("hybrid")
-    frac, matched, de = compare_lines(gpu_lines, body(out_hyb))
-    print(f"[hybrid] ris {N_Q} queries in {t_hy:.3f}s = {N_Q / t_hy:.4f} q/s "
-          f"(PRIBLAST_HYBRID=1); kernel launches ungapped {uop.launches}, gapped "
-          f"{gapped_sweep.launches}; against the main path {matched}/"
-          f"{len(gpu_lines)} lines agree ({frac:.6f}), max energy diff "
-          f"{de:.3g} kcal/mol {tag}", flush=True)
-    check(frac >= 0.999, f"hybrid/main agreement {frac} < 0.999")
-    check(de <= 1e-3, f"hybrid/main energy diff {de} > 1e-3")
-
-    # the router's default (PRIBLAST_HYBRID unset): per wave the chains it
-    # chose, against device_extend_wins on the wave's pairs
+    # ---- 4i. ris in the router's default: per wave the chain it chose,
+    # against device_extend_wins on the wave's pairs
     routes = []
     route0 = ris_gpu.route
 
@@ -1981,7 +1909,6 @@ def main() -> int:
                                n, threads_, len(dist.distinct(devices)))))
         return out
 
-    ris_gpu._CAL.update(host=None, dev=None)
     ris_gpu.route = route_rec
     out_def = work / "ris_default.txt"
     try:
@@ -1990,9 +1917,10 @@ def main() -> int:
         ris_gpu.route = route0
     check(len(routes) >= 1, "the router never ran in its default")
     for wi, r in enumerate(routes):
-        check(not r["dev_wins"] or r["host"] == 0,
-              f"default wave {wi}: the device chain wins alone, yet the "
-              f"host chain took {r['host']} queries")
+        check(r["dev" if r["dev_wins"] else "host"] > 0
+              and r["host" if r["dev_wins"] else "dev"] == 0,
+              f"default wave {wi}: not the whole wave on the chain "
+              f"device_extend_wins picks: {json.dumps(r)}")
     frac, matched, de = compare_lines(gpu_lines, body(out_def))
     def_sha = body_sha256(out_def)
     print(f"[default] ris with the router's defaults: {N_Q} queries in "
@@ -2192,8 +2120,8 @@ def main() -> int:
     def hold(label, a, k):
         """Kernel vs plain version on the same inputs: integers and
         traceback lists identical, floats to 1e-6 (float32) / 1e-12
-        (float64); then both timed. Prints the kernel's form and, from the
-        plain version's counts, the combos per hit and per diagonal and
+        (float64); then both timed. Prints, from the plain version's
+        counts, the combos per hit and per diagonal and
         the work list's lane efficiency (combos / (32 x rounds))."""
         dtype = k.get("dtype", "float32")
         ik, fk, tk = kernel(*a, **k)
@@ -2209,10 +2137,9 @@ def main() -> int:
         plain = cuda_ms(lambda: gapped_sweep.extend_dir_plain(*a, **k), 1)
         bound, bound_by, lanes = extend_bound_ms(a, k, ik)
         B = a[0].shape[0]
-        form = gapped_sweep.kernel_form(k["max_ext"], a[0].device)
         eff = work["combos"] / max(32 * work["rounds"], 1)
         print(f"[kernel] gapped_extend {label} {dtype} max_ext="
-              f"{k['max_ext']} flag={k['flag']} B={B} form {form}: "
+              f"{k['max_ext']} flag={k['flag']} B={B}: "
               f"{ms:.4f} ms, plain {plain:.2f} ms, bound {bound:.6f} ms "
               f"({bound_by}), {ms / bound:.1f}x bound, "
               f"{float(ik[:, 4].float().mean()):.2f} diagonals per hit, "
@@ -2225,7 +2152,7 @@ def main() -> int:
               f"({work['rounds']} rounds), max |floats diff| {diff:.3g} "
               f"{tag}", flush=True)
         return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by,
-                    err=diff, form=form, combos_per_hit=work["combos"] / B,
+                    err=diff, combos_per_hit=work["combos"] / B,
                     lane_efficiency=eff)
 
     check(len(first_sweep) == 1, "no gapped kernel inputs captured")
@@ -2243,8 +2170,7 @@ def main() -> int:
                             [native.sa_build(e) for e in encs], devices=dev)
     keys = (*pipeline.STREAM_KEYS, "qb", "qab", "dbb", "aoff", "coff")
     sub = {k: soa[k][:4096 + 37] for k in keys}
-    for dtype, max_ext in (("float32", 32), ("float64", 32),
-                           ("float32", 64)):
+    for dtype in ("float32", "float64"):
         calls = []
 
         def capture(*a, **k):
@@ -2256,7 +2182,7 @@ def main() -> int:
             gapped.gapped_extend_flat_batch(
                 sub, qp.bufs, dp.bufs, d=p.min_accessible_length,
                 dropout=p.drop_out_length_w_gap,
-                min_helix=p.min_helix_length, max_ext=max_ext, dtype=dtype,
+                min_helix=p.min_helix_length, max_ext=32, dtype=dtype,
                 device=dev)
         finally:
             gapped_sweep.gapped_extend_dir = kernel
@@ -2793,7 +2719,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": err,
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": None, "form": main_rec["form"],
+        "library_ms": None,
         "combos_per_hit": main_rec["combos_per_hit"],
         "lane_efficiency": main_rec["lane_efficiency"],
     }, {

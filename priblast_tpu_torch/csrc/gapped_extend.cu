@@ -28,39 +28,34 @@
 // Mapping: one warp per hit; several warps per block, persistent blocks
 // that stride over the hits. The block loads int21, int11, the small tables
 // (20 KB) and the loop constants into shared memory once, with the pair
-// type t0 and stored type rt[t0] of each pair of characters; int22 (80 KB)
+// type t0 of each pair of characters; int22 (80 KB)
 // is read from device memory through the L1 cache (in shared memory it
 // leaves room for fewer warps per SM, and measured slower). The launch takes
 // the warps per block that put the most warps in flight per SM.
 // Each warp works on its own region of shared memory (rings of the last
 // dropout + 2 diagonals: hyb, VM as int8, flag bits with the cell's stored
-// pair type and, for max_ext <= 32, a mask of the cells that hold a finite
-// hyb; the two rows of helix-admission bits; the predecessor rows; the
-// character windows and prefix chains) and syncs with __syncwarp only. On
-// diagonal L only the band cells max(1, L - maxd) <= i <= min(L - 1, maxq)
-// are worked on (~8 on the main path). Cells that are not admitted do no
-// combo work, and a combo whose predecessor lies outside the band or holds
-// INF is skipped (INF + x < run_min is never true, so this changes no
-// bit). The sweep has two forms, chosen by max_ext:
-//   - the work list (max_ext <= 32, every ris run at the defaults): lane i
-//     is cell i. The admitted cells put t0 and MS into slots in shared
-//     memory; then lane s takes loop size s, and for each admitted cell in
-//     turn the set bits of (ring row of diagonal L - s - 2) & (the cell's
-//     window of predecessors) are its combos (s, k): the lanes' counts,
-//     added up bit by bit with ballots, give each (cell, s) run its place
-//     in the diagonal's list (cell-major), which is dealt out over the 32
-//     lanes in rounds of 32 (a list of 32 entries, run whenever it fills).
-//     Every combo's energy is d100(integer) + ph, so the classes differ
-//     only in the integer they add: a bulge's terminal-AU terms, a special
-//     (u1, u2 <= 2) combo's table entry from the cell's characters and the
-//     predecessor's stored type, an interior loop's MS + VM. A segmented
-//     warp minimum on (Et, stems order) per round, pulled by the cell's
-//     lane, keeps the first minimum;
-//   - lanes (max_ext 33..120): each band cell gets G lanes (G * band <= 32,
-//     a power of two), which deal its predecessors k out by k % G and then
-//     reduce on the pair (Et, stems-order index); a band wider than 32
-//     falls back to one lane per cell and up to NC cells per lane (NC = 2,
-//     4 for max_ext <= 64, 128), and each lane walks every loop size s.
+// pair type and a mask of the cells that hold a finite hyb; the two rows
+// of helix-admission bits; the predecessor rows; the character windows and
+// prefix chains; the work list's cell slots and entries) and syncs with
+// __syncwarp only. On diagonal L only the band cells max(1, L - maxd) <= i
+// <= min(L - 1, maxq) are worked on (~8 on the main path). Cells that are
+// not admitted do no combo work, and a combo whose predecessor lies outside
+// the band or holds INF is skipped (INF + x < run_min is never true, so
+// this changes no bit). max_ext is at most 32 (kWorkMax; launch rejects
+// more), so lane i is cell i and a ring row's finite cells fit one mask
+// word. The sweep is a work list: the admitted cells put t0 and MS into
+// slots in shared memory; then lane s takes loop size s, and for each
+// admitted cell in turn the set bits of (ring row of diagonal L - s - 2) &
+// (the cell's window of predecessors) are its combos (s, k): the lanes'
+// counts, added up bit by bit with ballots, give each (cell, s) run its
+// place in the diagonal's list (cell-major), which is dealt out over the 32
+// lanes in rounds of 32 (a list of 32 entries, run whenever it fills).
+// Every combo's energy is d100(integer) + ph, so the classes differ only in
+// the integer they add: a bulge's terminal-AU terms, a special (u1, u2 <=
+// 2) combo's table entry from the cell's characters and the predecessor's
+// stored type, an interior loop's MS + VM. A segmented warp minimum on (Et,
+// stems order) per round, pulled by the cell's lane, keeps the first
+// minimum.
 // The winning combo's payload is derived once, after the minimum. The
 // template parameter DROP = 16, the main path's dropout (DROP = 0 is the
 // generic path), makes the ring length a compile-time constant. Every loop
@@ -72,7 +67,7 @@
 // shared memory both allow 32 warps per SM.
 //
 // A build with -DGAPPED_STAMPS (gapped_ab.py; never the wrapper's) counts
-// the work-list form's work (band, admitted cells, combos, rounds, ...) and
+// the work list's work (band, admitted cells, combos, rounds, ...) and
 // lane 0's SM cycles by part, summed over the launch's hits;
 // gapped_extend_stamps reads and clears the sums.
 //
@@ -152,11 +147,11 @@ __host__ __device__ __forceinline__ int align16(int n) {
   return (n + 15) & ~15;
 }
 
-// the work-list form: max_ext <= 32, so a diagonal's cells fit the lanes
-// and a ring row's finite cells one mask word
+// the largest max_ext: a diagonal's cells fit the lanes and a ring row's
+// finite cells one mask word
 constexpr int kWorkMax = 32;
 constexpr int kList = 32;   // work-list entries held at once (one round)
-constexpr int kPairBytes = 208;  // the block's t0 and rt[t0] of 25 pairs
+constexpr int kPairBytes = 112;  // the block's t0 of 25 pairs
 
 // byte offsets of one warp's region of shared memory
 struct WarpLayout {
@@ -179,10 +174,10 @@ __host__ __device__ inline WarpLayout warp_layout(int W, int XW, int RH,
   l.mt = off;      off += align16(2 * W);
   l.qm = off;      off += align16(XW);
   l.dm = off;      off += align16(XW);
-  // the work list's cell slots and entries
-  const int nw = W <= kWorkMax ? kWorkMax : 0;
-  l.cell = off;    off += align16(nw * 4);
-  l.list = off;    off += align16(nw ? kList * 4 : 0);
+  // the work list's cell slots (one a lane, lane i is cell i < W) and
+  // entries
+  l.cell = off;    off += align16(W * 4);
+  l.list = off;    off += align16(kList * 4);
   l.total = off;
   return l;
 }
@@ -225,7 +220,7 @@ __device__ __forceinline__ void min_pair(T &v, int &k, T ov, int ok) {
 }
 
 #ifdef GAPPED_STAMPS
-// the instrumented build's sums over a launch's hits (work-list form):
+// the instrumented build's sums over a launch's hits:
 // counts, then lane 0's SM cycles by part
 enum {
   kSHits, kSDiags, kSBand, kSAdm, kSCombos, kSSteps, kSEmpty, kSBusiest,
@@ -238,7 +233,7 @@ __device__ unsigned long long g_stamps[kNStamps];
 #define STAMP(...)
 #endif
 
-template <typename T, int DROP, int NC>
+template <typename T, int DROP>
 __global__ void extend_kernel(const Params<T> p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
@@ -264,15 +259,14 @@ __global__ void extend_kernel(const Params<T> p) {
       cst[k] = p.consts[k];
   }
   __syncthreads();
-  // the pair type t0 of the flag and the stored type rt[t0] of each pair of
-  // characters (a * 5 + b), after the loop constants
+  // the pair type t0 of the flag of each pair of characters (a * 5 + b),
+  // after the loop constants
   int32_t *t0tab = reinterpret_cast<int32_t *>(smem + tab_bytes + cst_bytes);
   if (threadIdx.x < 25) {
     const int32_t *sm0 = reinterpret_cast<const int32_t *>(
         reinterpret_cast<const int16_t *>(smem) + (kSmall - kI21));
     const int t = sm0[kBp + threadIdx.x];
     t0tab[threadIdx.x] = flag ? sm0[kRtype + t] : t;
-    t0tab[25 + threadIdx.x] = sm0[kRtype + (flag ? sm0[kRtype + t] : t)];
   }
   __syncthreads();
   const int16_t *tab = reinterpret_cast<const int16_t *>(smem);
@@ -287,7 +281,6 @@ __global__ void extend_kernel(const Params<T> p) {
   const T *divt = cbul + dropout + 1;
   const int rlo = p.rlo, nspan = p.nspan;
   const int tau_i = sm[kTau];
-  const T tau = T(tau_i);
   const int b1 = sm[kB1];
   const T INF = inf_of<T>();
   const T hundred = T(100);
@@ -311,7 +304,7 @@ __global__ void extend_kernel(const Params<T> p) {
   int8_t *ring_vm = reinterpret_cast<int8_t *>(wb + wl.ring_vm);
   int16_t *pred = reinterpret_cast<int16_t *>(wb + wl.pred);
   int32_t *tbs = reinterpret_cast<int32_t *>(wb + wl.tbs);
-  // per ring row, bit k: lane k holds a finite hyb (max_ext <= 32)
+  // per ring row, bit k: lane k holds a finite hyb
   uint32_t *rmask = reinterpret_cast<uint32_t *>(wb + wl.rmask);
   uint8_t *ring_f = wb + wl.ring_f;
   uint8_t *mt = wb + wl.mt;  // [2][W]: bit 0 type-0 bit, bit 1 wobble bit
@@ -323,7 +316,6 @@ __global__ void extend_kernel(const Params<T> p) {
   uint32_t *list = reinterpret_cast<uint32_t *>(wb + wl.list);
 
   auto t0_of = [&](int a, int b) { return t0tab[a * 5 + b]; };
-  auto st_of = [&](int a, int b) { return t0tab[25 + a * 5 + b]; };
   auto vm_of = [&](int t, int q1, int d1) {
     const int s = rt[t];
     return flag ? mism[(s * 5 + q1) * 5 + d1] : mism[(s * 5 + d1) * 5 + q1];
@@ -437,14 +429,11 @@ __global__ void extend_kernel(const Params<T> p) {
         const int D = L - RH + r;
         if (D < 0) continue;
         const uint8_t *rf = ring_f + (D % RH) * W;
-        for (int c = 0; c < NC && !found; ++c) {
-          const int i = lane + 32 * c;
-          const unsigned m = __ballot_sync(kFull, i < W && (rf[i] & kAdm));
-          if (m) {
-            const int f = rf[32 * c + __ffs(m) - 1];
-            stem = ((f & kZ) ? 1 : 0) | ((f & kWb) ? 2 : 0);
-            found = true;
-          }
+        const unsigned m = __ballot_sync(kFull, lane < W && (rf[lane] & kAdm));
+        if (m) {
+          const int f = rf[__ffs(m) - 1];
+          stem = ((f & kZ) ? 1 : 0) | ((f & kWb) ? 2 : 0);
+          found = true;
         }
       }
       return stem;
@@ -524,345 +513,177 @@ __global__ void extend_kernel(const Params<T> p) {
       return flag ? mism[(t0 * 5 + d1) * 5 + q1] : mism[(t0 * 5 + q1) * 5 + d1];
     };
 
-    if constexpr (NC == 1) {
-      // ---- the work list (max_ext <= 32): lane i is cell i -------------
-      const int i = lane;
-      for (int L = 1; L <= W && active; ++L) {
-        STAMP(const long long t_a = clock64();)
-        n_diag = L;
-        const int lo = max(1, L - maxd);
-        const int hi = min(min(L - 1, maxq), W - 1);
-        const int j = L - i;
-        const bool band = lo <= i && i <= hi;
-        const uint8_t *mprev = mt + (L & 1) * W;  // diagonal L - 2
-        int t0 = 0, fl = 0;
-        const bool adm = band && admit(i, j, mprev, t0, fl);
-        const unsigned am = __ballot_sync(kFull, adm);
-        STAMP(const long long t_b = clock64(); cyc_admit += t_b - t_a;
-              n_band += __popc(__ballot_sync(kFull, band));
-              n_adm += __popc(am);)
-        T hyb = INF;
-        int vmv = 0, pk = 0, mtb = 0;
-        if (am) {
-          if (adm) {
-            cell[i] = (t0 << 16) | (ms_of(i, j, t0) & 0xffff);
-            vmv = vm_of(t0, qm[i + 1], dm[j + 1]);
-          }
-          // lane s: loop size s, the ring row of the predecessors' diagonal
-          // L - s - 2 (none below diagonal 0)
-          const int s = lane;
-          const int smax = min(dropout, L - 2);
-          int r = 0;
-          unsigned rm = 0;
-          if (s <= smax) {
-            r = (L - s - 2) % RH;
-            rm = rmask[r];
-          }
-          const unsigned head = (unsigned)((r << 15) | (s << 10));
-          int g = 0, gb = 0;   // entries listed in all, and before list[0]
-          int gc = 0, nc = 0;  // this lane's cell's entries [gc, gc + nc)
-          T run_min = INF;
-          int run_q = 0;  // the cell's (31 - s, 31 - u1): stems order
-          STAMP(int busiest = 0;)
+    // the work list: lane i is cell i
+    const int i = lane;
+    for (int L = 1; L <= W && active; ++L) {
+      STAMP(const long long t_a = clock64();)
+      n_diag = L;
+      const int lo = max(1, L - maxd);
+      const int hi = min(min(L - 1, maxq), W - 1);
+      const int j = L - i;
+      const bool band = lo <= i && i <= hi;
+      const uint8_t *mprev = mt + (L & 1) * W;  // diagonal L - 2
+      int t0 = 0, fl = 0;
+      const bool adm = band && admit(i, j, mprev, t0, fl);
+      const unsigned am = __ballot_sync(kFull, adm);
+      STAMP(const long long t_b = clock64(); cyc_admit += t_b - t_a;
+            n_band += __popc(__ballot_sync(kFull, band));
+            n_adm += __popc(am);)
+      T hyb = INF;
+      int vmv = 0, pk = 0, mtb = 0;
+      if (am) {
+        if (adm) {
+          cell[i] = (t0 << 16) | (ms_of(i, j, t0) & 0xffff);
+          vmv = vm_of(t0, qm[i + 1], dm[j + 1]);
+        }
+        // lane s: loop size s, the ring row of the predecessors' diagonal
+        // L - s - 2 (none below diagonal 0)
+        const int s = lane;
+        const int smax = min(dropout, L - 2);
+        int r = 0;
+        unsigned rm = 0;
+        if (s <= smax) {
+          r = (L - s - 2) % RH;
+          rm = rmask[r];
+        }
+        const unsigned head = (unsigned)((r << 15) | (s << 10));
+        int g = 0, gb = 0;   // entries listed in all, and before list[0]
+        int gc = 0, nc = 0;  // this lane's cell's entries [gc, gc + nc)
+        T run_min = INF;
+        int run_q = 0;  // the cell's (31 - s, 31 - u1): stems order
+        STAMP(int busiest = 0;)
 
-          // entries [0, n) of the list: a combo (cell c, s, k) per lane and
-          // round; the cell's lane keeps the minimum on (Et, stems order)
-          auto run = [&](int n) {
-            for (int t = 0; t < n; t += 32) {
-              STAMP(++n_rounds;)
-              T v = INF;
-              int qc = -1;
-              if (t + lane < n) {
-                const unsigned en = list[t + lane];
-                const int c = en & 31, k = (en >> 5) & 31,
-                          es = (en >> 10) & 31;
-                const int o = (int)(en >> 15) * W + k;  // the predecessor
-                const int u1 = c - k - 1, u2 = es - u1, cj = L - c;
-                const int cs = cell[c], ct0 = cs >> 16;
-                int x;
-                if (es >= 2 && (u1 == 0 || u2 == 0)) {  // bulge
-                  x = ((ct0 > 2 ? tau_i : 0) + cbul_i(es)) +
-                      ((ring_f[o] & kAU) ? tau_i : 0);
-                } else if (es <= 1 || (u1 <= 2 && u2 <= 2)) {
-                  x = special_raw(ct0, u1, u2, ring_f[o] >> kSt, qm[c - 1],
-                                  u1 == 2 ? qm[c - 2] : 0, dm[cj - 1],
-                                  u2 == 2 ? dm[cj - 2] : 0);
-                } else {  // interior loop
-                  x = ((int)(int16_t)(cs & 0xffff) + cint_i(es)) + ring_vm[o];
-                }
-                v = d100(x) + ring_h[o];
-                qc = (c << 10) | ((31 - es) << 5) | (31 - u1);
+        // entries [0, n) of the list: a combo (cell c, s, k) per lane and
+        // round; the cell's lane keeps the minimum on (Et, stems order)
+        auto run = [&](int n) {
+          for (int t = 0; t < n; t += 32) {
+            STAMP(++n_rounds;)
+            T v = INF;
+            int qc = -1;
+            if (t + lane < n) {
+              const unsigned en = list[t + lane];
+              const int c = en & 31, k = (en >> 5) & 31,
+                        es = (en >> 10) & 31;
+              const int o = (int)(en >> 15) * W + k;  // the predecessor
+              const int u1 = c - k - 1, u2 = es - u1, cj = L - c;
+              const int cs = cell[c], ct0 = cs >> 16;
+              int x;
+              if (es >= 2 && (u1 == 0 || u2 == 0)) {  // bulge
+                x = ((ct0 > 2 ? tau_i : 0) + cbul_i(es)) +
+                    ((ring_f[o] & kAU) ? tau_i : 0);
+              } else if (es <= 1 || (u1 <= 2 && u2 <= 2)) {
+                x = special_raw(ct0, u1, u2, ring_f[o] >> kSt, qm[c - 1],
+                                u1 == 2 ? qm[c - 2] : 0, dm[cj - 1],
+                                u2 == 2 ? dm[cj - 2] : 0);
+              } else {  // interior loop
+                x = ((int)(int16_t)(cs & 0xffff) + cint_i(es)) + ring_vm[o];
               }
-              // segmented minimum towards the first lane of each cell's run
+              v = d100(x) + ring_h[o];
+              qc = (c << 10) | ((31 - es) << 5) | (31 - u1);
+            }
+            // segmented minimum towards the first lane of each cell's run
 #pragma unroll
-              for (int off = 1; off < 32; off <<= 1) {
-                const T ov = __shfl_down_sync(kFull, v, off);
-                const int oq = __shfl_down_sync(kFull, qc, off);
-                if (((oq ^ qc) >> 10) == 0 &&
-                    (ov < v || (ov == v && oq < qc))) {
-                  v = ov;
-                  qc = oq;
-                }
-              }
-              const int r0 = gb + t;
-              const bool mine = nc > 0 && gc < r0 + 32 && gc + nc > r0;
-              const int src = mine ? max(gc, r0) - r0 : lane;
-              const T hv = __shfl_sync(kFull, v, src);
-              const int hq = __shfl_sync(kFull, qc, src);
-              if (mine && (hv < run_min || (hv == run_min && hq < run_q))) {
-                run_min = hv;
-                run_q = hq;
+            for (int off = 1; off < 32; off <<= 1) {
+              const T ov = __shfl_down_sync(kFull, v, off);
+              const int oq = __shfl_down_sync(kFull, qc, off);
+              if (((oq ^ qc) >> 10) == 0 &&
+                  (ov < v || (ov == v && oq < qc))) {
+                v = ov;
+                qc = oq;
               }
             }
-            __syncwarp();  // the list is read: it may be refilled
-          };
-
-          for (unsigned cells = am; cells; cells &= cells - 1) {
-            const int c = __ffs(cells) - 1;
-            // predecessors k = c - u1 - 1 of loop size s: c - s - 1 <= k <=
-            // c - 1 (a ring row holds no finite cell past k = its diagonal
-            // - 1, so u2 <= j - 1 needs no test)
-            const int kl = c - s - 1;
-            unsigned w =
-                rm & ((1u << c) - 1u) & (kl > 0 ? ~((1u << kl) - 1u) : kFull);
-            const int cnt = __popc(w);
-            STAMP(busiest = max(busiest, cnt);
-                  n_steps += smax + 1;
-                  n_empty += __popc(__ballot_sync(kFull, s <= smax && !cnt));)
-            // the lanes' counts before this one and in all, bit by bit
-            // (a count has at most 5 bits, and mostly 1 or 2)
-            const unsigned bits = __reduce_or_sync(kFull, (unsigned)cnt);
-            if (!bits) continue;  // a cell without a combo
-            int before = 0, tot = 0;
-            for (int bit = 0; bits >> bit; ++bit) {
-              const unsigned m = __ballot_sync(kFull, (cnt >> bit) & 1);
-              before += __popc(m & ((1u << lane) - 1u)) << bit;
-              tot += __popc(m) << bit;
-            }
-            if (lane == c) {
-              gc = g;
-              nc = tot;
-            }
-            int e = g + before;  // this lane's first entry
-            g += tot;
-            for (;;) {
-              for (; w && e < gb + kList; ++e, w &= w - 1)
-                list[e - gb] = head | ((__ffs(w) - 1) << 5) | c;
-              if (g - gb < kList) break;
-              __syncwarp();
-              run(kList);
-              gb += kList;
+            const int r0 = gb + t;
+            const bool mine = nc > 0 && gc < r0 + 32 && gc + nc > r0;
+            const int src = mine ? max(gc, r0) - r0 : lane;
+            const T hv = __shfl_sync(kFull, v, src);
+            const int hq = __shfl_sync(kFull, qc, src);
+            if (mine && (hv < run_min || (hv == run_min && hq < run_q))) {
+              run_min = hv;
+              run_q = hq;
             }
           }
-          if (g > gb) {
+          __syncwarp();  // the list is read: it may be refilled
+        };
+
+        for (unsigned cells = am; cells; cells &= cells - 1) {
+          const int c = __ffs(cells) - 1;
+          // predecessors k = c - u1 - 1 of loop size s: c - s - 1 <= k <=
+          // c - 1 (a ring row holds no finite cell past k = its diagonal
+          // - 1, so u2 <= j - 1 needs no test)
+          const int kl = c - s - 1;
+          unsigned w =
+              rm & ((1u << c) - 1u) & (kl > 0 ? ~((1u << kl) - 1u) : kFull);
+          const int cnt = __popc(w);
+          STAMP(busiest = max(busiest, cnt);
+                n_steps += smax + 1;
+                n_empty += __popc(__ballot_sync(kFull, s <= smax && !cnt));)
+          // the lanes' counts before this one and in all, bit by bit
+          // (a count has at most 5 bits, and mostly 1 or 2)
+          const unsigned bits = __reduce_or_sync(kFull, (unsigned)cnt);
+          if (!bits) continue;  // a cell without a combo
+          int before = 0, tot = 0;
+          for (int bit = 0; bits >> bit; ++bit) {
+            const unsigned m = __ballot_sync(kFull, (cnt >> bit) & 1);
+            before += __popc(m & ((1u << lane) - 1u)) << bit;
+            tot += __popc(m) << bit;
+          }
+          if (lane == c) {
+            gc = g;
+            nc = tot;
+          }
+          int e = g + before;  // this lane's first entry
+          g += tot;
+          for (;;) {
+            for (; w && e < gb + kList; ++e, w &= w - 1)
+              list[e - gb] = head | ((__ffs(w) - 1) << 5) | c;
+            if (g - gb < kList) break;
             __syncwarp();
-            run(g - gb);
-          }
-          STAMP(n_combos += g; n_busiest += __reduce_add_sync(kFull, busiest);)
-          if (adm && run_min < INF) {
-            hyb = run_min;
-            const int ws = 31 - ((run_q >> 5) & 31), u1 = 31 - (run_q & 31);
-            const int f = ring_f[((L - ws - 2) % RH) * W + i - u1 - 1];
-            const int pay = ((f & kZ) ? 16384 : 0) + ((f & kWb) ? 32768 : 0) +
-                            (i * W + L - ((u1 + 1) * ME1 + ws - u1 + 1));
-            pk = pay & 16383;
-            mtb = ((pay & 16384) ? 1 : 0) | ((pay & 32768) ? 2 : 0);
+            run(kList);
+            gb += kList;
           }
         }
-        STAMP(const long long t_c = clock64(); cyc_combo += t_c - t_b;)
-        const bool nopred = adm && !(hyb < INF);
-        STAMP(n_nopred += __popc(__ballot_sync(kFull, nopred));)
-        if (__any_sync(kFull, nopred)) {
-          const int stem = stem0(L);
-          if (nopred) mtb = stem;
+        if (g > gb) {
+          __syncwarp();
+          run(g - gb);
         }
-        STAMP(const long long t_d = clock64(); cyc_fallback += t_d - t_c;)
-        const unsigned fm = __ballot_sync(kFull, adm && hyb < INF);
-        T v = INF;
-        int arg = 1 << 30;
-        if (adm) min_pair(v, arg, (extq[i] + extdb[j]) + hyb, i);
-        close_diag(L, v, arg, fm != 0);
-
-        // every lane is done reading this diagonal's window: write row L
-        __syncwarp();
-        const int crow = (L % RH) * W;
-        if (i < W) {
-          ring_h[crow + i] = hyb;
-          ring_f[crow + i] = (uint8_t)(fl | (adm ? kAdm : 0));
-          if (band) ring_vm[crow + i] = (int8_t)vmv;
-          mt[(L & 1) * W + i] = (uint8_t)(adm ? mtb : 1);
-          pred[L * W + i] = (int16_t)(adm ? pk : -1);
+        STAMP(n_combos += g; n_busiest += __reduce_add_sync(kFull, busiest);)
+        if (adm && run_min < INF) {
+          hyb = run_min;
+          const int ws = 31 - ((run_q >> 5) & 31), u1 = 31 - (run_q & 31);
+          const int f = ring_f[((L - ws - 2) % RH) * W + i - u1 - 1];
+          const int pay = ((f & kZ) ? 16384 : 0) + ((f & kWb) ? 32768 : 0) +
+                          (i * W + L - ((u1 + 1) * ME1 + ws - u1 + 1));
+          pk = pay & 16383;
+          mtb = ((pay & 16384) ? 1 : 0) | ((pay & 32768) ? 2 : 0);
         }
-        if (lane == 0) rmask[L % RH] = fm;
-        __syncwarp();
-        STAMP(cyc_rest += clock64() - t_d;)
       }
-    } else {
-      // ---- lanes (max_ext 33..120) ---------------------------------------
-      for (int L = 1; L <= W && active; ++L) {
-        n_diag = L;
-        const int lo = max(1, L - maxd);
-        const int hi = min(min(L - 1, maxq), W - 1);
-        const int nb = hi - lo + 1;  // band cells of this diagonal
-        // G lanes per band cell (a power of two, G * nb <= 32): the cell's
-        // combos are dealt out over its G lanes, then reduced on (Et, stems
-        // order), which keeps the first minimum
-        int G = 1;
-        while (nb > 0 && G * 2 * nb <= 32) G <<= 1;
-        const int g = lane & (G - 1);
-        const int slot0 = lane / G, slots = 32 / G;
-        const uint8_t *mprev = mt + (L & 1) * W;  // diagonal L - 2
-        T hyb[NC];
-        int cell[NC], fl[NC], vmv[NC], pk[NC], mtb[NC];
-        bool adm[NC], nopred[NC];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int i = lo + slot0 + slots * c, j = L - i;
-          cell[c] = i <= hi ? i : -1;
-          fl[c] = 0;
-          vmv[c] = 0;
-          int t0 = 0;
-          adm[c] = i <= hi && admit(i, j, mprev, t0, fl[c]);
-          T run_min = INF;
-          int run_pay = 0, run_idx = 1 << 30;
-          if (adm[c]) {
-            // the special combos' energies, in the order (0,0) (0,1) (1,0)
-            // (1,1) (1,2) (2,1) (2,2), from the characters before the cell
-            const int q1 = qm[i - 1], q2 = i >= 2 ? qm[i - 2] : 0,
-                      q3 = i >= 3 ? qm[i - 3] : 0;
-            const int d1 = dm[j - 1], d2 = j >= 2 ? dm[j - 2] : 0,
-                      d3 = j >= 3 ? dm[j - 3] : 0;
-            const int ms = ms_of(i, j, t0);
-            const T sp[7] = {
-                d100(special_raw(t0, 0, 0, st_of(q1, d1), q1, q2, d1, d2)),
-                d100(special_raw(t0, 0, 1, st_of(q1, d2), q1, q2, d1, d2)),
-                d100(special_raw(t0, 1, 0, st_of(q2, d1), q1, q2, d1, d2)),
-                d100(special_raw(t0, 1, 1, st_of(q2, d2), q1, q2, d1, d2)),
-                d100(special_raw(t0, 1, 2, st_of(q2, d3), q1, q2, d1, d2)),
-                d100(special_raw(t0, 2, 1, st_of(q3, d2), q1, q2, d1, d2)),
-                d100(special_raw(t0, 2, 2, st_of(q3, d3), q1, q2, d1, d2))};
-            const int au_f = t0 > 2 ? tau_i : 0;
-            const T au_fT = t0 > 2 ? tau : T(0);
-            const T msT = T(ms);
-            const int base_pk = i * W + L;
-            int run_su = 0;  // (s << 8) | u1 of the running minimum
-
-            // one combo (s, u1): the predecessor k = i - u1 - 1 of the ring
-            // row of diagonal L - s - 2 holds the finite hyb ph
-            auto combo = [&](int s, int u1, int k, T ph, const int8_t *rv,
-                             const uint8_t *rf, int order0) {
-              const int u2 = s - u1;
-              T Et;
-              if (s >= 2 && (u1 == 0 || u2 == 0)) {
-                const int au_p = (rf[k] & kAU) ? tau_i : 0;
-                Et = (s <= 30 ? d100((au_f + cbul_i(s)) + au_p)
-                              : ((au_fT + cbul[s]) + (au_p ? tau : T(0))) /
-                                    hundred) + ph;
-              } else if (s <= 1 || (u1 <= 2 && u2 <= 2)) {
-                const int uu = u1 * 3 + u2;
-                Et = sp[uu - (uu > 2) - (uu > 6)] + ph;
-              } else {
-                Et = (s <= 30 ? d100((ms + cint_i(s)) + rv[k])
-                              : ((msT + cint[s]) + T(rv[k])) / hundred) + ph;
-              }
-              if (Et < run_min) {
-                run_min = Et;
-                run_idx = order0 - u1;
-                run_su = (s << 8) | u1;
-              }
-            };
-
-#pragma unroll 1
-            for (int s = dropout; s >= 0; --s) {
-              const int Dp = L - s - 2;  // the predecessors' diagonal
-              if (Dp < 0) continue;
-              const int r = Dp % RH;
-              const T *rh = ring_h + r * W;
-              const int8_t *rv = ring_vm + r * W;
-              const uint8_t *rf = ring_f + r * W;
-              // stems order of (s, u1): combos of larger s come first
-              const int order0 = ((dropout + 1) * (dropout + 2) -
-                                  (s + 1) * (s + 2)) / 2 + s;
-              // predecessor (i - u1 - 1, j - u2 - 1) needs u1 < i, u2 < j;
-              // the lane visits its combos in increasing k (decreasing u1,
-              // increasing stems order) and strict < keeps the first minimum
-              const int uhi = min(s, i - 1), ulo = max(0, s - (j - 1));
-              const int klo = i - uhi - 1, khi = i - ulo - 1;
-              for (int k = klo + ((g - klo) & (G - 1)); k <= khi; k += G) {
-                const T ph = rh[k];
-                if (ph < INF) combo(s, i - k - 1, k, ph, rv, rf, order0);
-              }
-            }
-            if (run_min < INF) {
-              const int s = run_su >> 8, u1 = run_su & 255, u2 = s - u1;
-              const int f = ring_f[((L - s - 2) % RH) * W + i - u1 - 1];
-              run_pay = ((f & kZ) ? 16384 : 0) + ((f & kWb) ? 32768 : 0) +
-                        (base_pk - ((u1 + 1) * ME1 + u2 + 1));
-            }
-            vmv[c] = vm_of(t0, qm[i + 1], dm[j + 1]);
-          }
-          // the cell's minimum over its G lanes
-          for (int off = 1; off < G; off <<= 1) {
-            const T ov = __shfl_xor_sync(kFull, run_min, off);
-            const int oi = __shfl_xor_sync(kFull, run_idx, off);
-            const int op = __shfl_xor_sync(kFull, run_pay, off);
-            if (ov < run_min || (ov == run_min && oi < run_idx)) {
-              run_min = ov;
-              run_idx = oi;
-              run_pay = op;
-            }
-          }
-          hyb[c] = run_min;
-          nopred[c] = !(run_min < INF);
-          const int pay = run_pay > 0 ? run_pay : 0;
-          pk[c] = nopred[c] ? 0 : (pay & 16383);
-          mtb[c] = ((pay & 16384) ? 1 : 0) | ((pay & 32768) ? 2 : 0);
-        }
-
-        bool need = false;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) need = need || (adm[c] && nopred[c]);
-        if (__any_sync(kFull, need)) {
-          const int stem = stem0(L);
-#pragma unroll
-          for (int c = 0; c < NC; ++c)
-            if (adm[c] && nopred[c]) mtb[c] = stem;
-        }
-
-        T v = INF;
-        int arg = 1 << 30;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int i = cell[c];
-          if (adm[c] && g == 0)
-            min_pair(v, arg, (extq[i] + extdb[L - i]) + hyb[c], i);
-        }
-        close_diag(L, v, arg, true);
-
-        // every lane is done reading this diagonal's window: write row L,
-        // first the empty cells, then the band cells from their first lane
-        __syncwarp();
-        const int crow = (L % RH) * W;
-        uint8_t *mcur = mt + (L & 1) * W;
-        for (int i = lane; i < W; i += 32) {
-          ring_h[crow + i] = INF;
-          ring_f[crow + i] = 0;
-          mcur[i] = 1;
-          pred[L * W + i] = -1;
-        }
-        __syncwarp();
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int i = cell[c];
-          if (i < 0 || g != 0) continue;
-          ring_h[crow + i] = adm[c] ? hyb[c] : INF;
-          ring_f[crow + i] = (uint8_t)(fl[c] | (adm[c] ? kAdm : 0));
-          ring_vm[crow + i] = (int8_t)vmv[c];
-          mcur[i] = (uint8_t)(adm[c] ? mtb[c] : 1);
-          pred[L * W + i] = (int16_t)(adm[c] ? pk[c] : -1);
-        }
-        __syncwarp();
+      STAMP(const long long t_c = clock64(); cyc_combo += t_c - t_b;)
+      const bool nopred = adm && !(hyb < INF);
+      STAMP(n_nopred += __popc(__ballot_sync(kFull, nopred));)
+      if (__any_sync(kFull, nopred)) {
+        const int stem = stem0(L);
+        if (nopred) mtb = stem;
       }
+      STAMP(const long long t_d = clock64(); cyc_fallback += t_d - t_c;)
+      const unsigned fm = __ballot_sync(kFull, adm && hyb < INF);
+      T v = INF;
+      int arg = 1 << 30;
+      if (adm) min_pair(v, arg, (extq[i] + extdb[j]) + hyb, i);
+      close_diag(L, v, arg, fm != 0);
+
+      // every lane is done reading this diagonal's window: write row L
+      __syncwarp();
+      const int crow = (L % RH) * W;
+      if (i < W) {
+        ring_h[crow + i] = hyb;
+        ring_f[crow + i] = (uint8_t)(fl | (adm ? kAdm : 0));
+        if (band) ring_vm[crow + i] = (int8_t)vmv;
+        mt[(L & 1) * W + i] = (uint8_t)(adm ? mtb : 1);
+        pred[L * W + i] = (int16_t)(adm ? pk : -1);
+      }
+      if (lane == 0) rmask[L % RH] = fm;
+      __syncwarp();
+      STAMP(cyc_rest += clock64() - t_d;)
     }
     STAMP(const long long t_post = clock64();)
 
@@ -901,7 +722,7 @@ __global__ void extend_kernel(const Params<T> p) {
           cyc_hit += t_end - t_hit; ++n_hits; n_diags += n_diag;)
   }
 #ifdef GAPPED_STAMPS
-  if (NC == 1 && lane == 0) {
+  if (lane == 0) {
     const long long v[kNStamps] = {
         n_hits, n_diags, n_band, n_adm, n_combos, n_steps, n_empty,
         n_busiest, n_rounds, n_nopred, cyc_hit, cyc_pre, cyc_admit, cyc_combo,
@@ -923,9 +744,9 @@ size_t smem_bytes(int W, int XW, int dropout, int steps, int nspan,
 
 // the launch's warps per block and blocks per SM: the most warps in flight
 // per SM, the fewest warps per block on a tie
-template <typename T, int DROP, int NC>
-int plan_nc(const Params<T> &p, int *warps_out, int *blocks_out) {
-  auto kern = extend_kernel<T, DROP, NC>;
+template <typename T, int DROP>
+int plan(const Params<T> &p, int *warps_out, int *blocks_out) {
+  auto kern = extend_kernel<T, DROP>;
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -958,11 +779,16 @@ int plan_nc(const Params<T> &p, int *warps_out, int *blocks_out) {
   return 0;
 }
 
-template <typename T, int DROP, int NC>
-int launch_nc(const Params<T> &p, void *stream) {
+// warps_in_flight: if not null, the launch is planned, not made, and its
+// warps per SM are stored there
+template <typename T, int DROP>
+int launch_drop(const Params<T> &p, void *stream, int *warps_in_flight) {
   int warps = 0, nb = 0, dev = 0, n_sm = 0;
-  const int e = plan_nc<T, DROP, NC>(p, &warps, &nb);
-  if (e != 0) return e;
+  const int e = plan<T, DROP>(p, &warps, &nb);
+  if (e != 0 || warps_in_flight) {
+    if (warps_in_flight) *warps_in_flight = warps * nb;
+    return e;
+  }
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   const size_t sb =
@@ -970,34 +796,17 @@ int launch_nc(const Params<T> &p, void *stream) {
   const int64_t need = (p.B + warps - 1) / warps;
   const int64_t cap = (int64_t)nb * n_sm;
   const int grid = (int)(need < cap ? need : cap);
-  auto kern = extend_kernel<T, DROP, NC>;
+  auto kern = extend_kernel<T, DROP>;
   kern<<<grid, 32 * warps, sb, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-// the form by max_ext: the work list (NC = 1) up to kWorkMax, else lanes
-template <typename T, int DROP>
-int launch_drop(const Params<T> &p, void *stream, int *warps_in_flight) {
-  int w = 0, nb = 0, e = 0;
-  if (warps_in_flight) {
-    e = p.max_ext <= kWorkMax ? plan_nc<T, DROP, 1>(p, &w, &nb)
-        : p.max_ext <= 64     ? plan_nc<T, DROP, 2>(p, &w, &nb)
-                              : plan_nc<T, DROP, 4>(p, &w, &nb);
-    *warps_in_flight = w * nb;
-    return e;
-  }
-  if (p.max_ext <= kWorkMax) return launch_nc<T, DROP, 1>(p, stream);
-  if (p.max_ext <= 64) return launch_nc<T, DROP, 2>(p, stream);
-  return launch_nc<T, DROP, 4>(p, stream);
 }
 
 // ptrs: q_enc, db_seq, q_acc, q_cond, db_acc, db_cond, q_start, db_start,
 //   id_anchor, qb, qab, dbb, aoff, coff, energy0, acc0, valid, tables,
 //   consts, ints, floats, tb (22 device pointers);
 // sizes: n_qenc, n_db, n_qacc, n_qcond, n_dacc, n_dcond, B;
-// iparams: flag, d, dropout, min_helix, max_ext, XW, steps, rlo, nspan
-// warps_in_flight: if not null, the launch is planned, not made, and its
-// warps per SM are stored there
+// iparams: flag, d, dropout, min_helix, max_ext, XW, steps, rlo, nspan;
+// max_ext outside 1..kWorkMax is refused before anything is touched
 template <typename T>
 int launch(void *const *ptrs, const long long *sizes, const int *iparams,
            void *stream, int *warps_in_flight = nullptr) {
@@ -1040,6 +849,8 @@ int launch(void *const *ptrs, const long long *sizes, const int *iparams,
   p.steps = iparams[6];
   p.rlo = iparams[7];
   p.nspan = iparams[8];
+  if (p.max_ext < 1 || p.max_ext > kWorkMax)
+    return (int)cudaErrorInvalidValue;
   if (p.B == 0 && !warps_in_flight) return 0;
   if (p.dropout == 16) return launch_drop<T, 16>(p, stream, warps_in_flight);
   return launch_drop<T, 0>(p, stream, warps_in_flight);

@@ -21,13 +21,13 @@ the per-hit columns, and returns
   floats [B, 2]: min_e, min_a (the working dtype);
   tb [B, 2, max_ext // 2 + 1] int32: tb_i, tb_j in reference push order,
      0-terminated.
-On CUDA tensors it launches the kernel, which looks every energy up from
-the characters in the Turner tables held in shared memory: no energy
-plane, predecessor row or traceback state reaches device memory. On CPU
-tensors it runs the plain version, `extend_dir_plain`: the energy planes
-[B, 9, max_ext+1, max_ext] built by gathers, the sweep (`sweep_plain`, a
-Python loop over the diagonals) and the traceback as a loop of gathers,
-in the operation order of the kernel.
+On CUDA tensors it launches the kernel (max_ext <= KERNEL_MAX_EXT), which
+looks every energy up from the characters in the Turner tables held in
+shared memory: no energy plane, predecessor row or traceback state reaches
+device memory. On CPU tensors it runs the plain version, `extend_dir_plain`
+(max_ext <= 120): the energy planes [B, 9, max_ext+1, max_ext] built by
+gathers, the sweep (`sweep_plain`, a Python loop over the diagonals) and
+the traceback as a loop of gathers, in the operation order of the kernel.
 """
 
 from __future__ import annotations
@@ -71,25 +71,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC"]
 
 launches = 0  # kernel launches by gapped_extend_dir(); plain calls not counted
-# the same launches by the kernel's form (`kernel_form`)
-form_launches = {"worklist": 0, "lanes": 0}
-WORKLIST_MAX_EXT = 32   # csrc/gapped_extend.cu kWorkMax
+# the kernel's largest max_ext (csrc/gapped_extend.cu kWorkMax): a diagonal's
+# cells fit a warp's lanes and a ring row's finite cells one mask word
+KERNEL_MAX_EXT = 32
 
 
 def combos(dropout: int):
     """(s, u1) predecessor offsets in the reference's stems-list order."""
     return [(s, u1) for s in range(dropout, -1, -1)
             for u1 in range(s, -1, -1)]
-
-
-def kernel_form(max_ext: int, device) -> str | None:
-    """The form of the sweep that gapped_extend_dir runs on `device`: the
-    kernel's work list for max_ext <= 32 (a diagonal's cells fit a warp's
-    lanes and a ring row's finite cells one mask word), its lanes form for
-    wider ones, and None on the CPU (the plain version)."""
-    if torch.device(device).type != "cuda":
-        return None
-    return "worklist" if max_ext <= WORKLIST_MAX_EXT else "lanes"
 
 
 def build() -> Path:
@@ -398,6 +388,9 @@ def gapped_extend_dir(q_start, db_start, id_anchor, energy0, acc0, valid,
         return extend_dir_plain(*args, **kw)
     if dev.type != "cuda":
         raise ValueError(f"gapped_extend_dir runs on cuda or cpu, not {dev}")
+    if max_ext > KERNEL_MAX_EXT:
+        raise ValueError(f"max_ext={max_ext}: the kernel sweeps at most "
+                         f"{KERNEL_MAX_EXT} diagonals")
 
     fn = (_lib().gapped_extend_f32 if dt == torch.float32
           else _lib().gapped_extend_f64)
@@ -406,7 +399,6 @@ def gapped_extend_dir(q_start, db_start, id_anchor, energy0, acc0, valid,
                     **kw)
     # an empty batch launches nothing
     nvcc.add_launches(globals(), "launches", int(B > 0))
-    nvcc.add_launches(form_launches, kernel_form(max_ext, dev), int(B > 0))
     return out
 
 

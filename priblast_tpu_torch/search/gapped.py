@@ -93,7 +93,7 @@ _HI_COLS = ("q_sp", "db_sp", "q_len", "db_len", "dbseq_start",
 
 
 def gapped_extend_flat_batch(hits, qbufs, dbufs, *, d: int, dropout: int,
-                             min_helix: int, max_ext: int = 64,
+                             min_helix: int, max_ext: int = 32,
                              dtype: str = "float32", device):
     """Both extension directions for a hit batch (SoA numpy dict carrying
     per-hit base offsets qb/qab/dbb/aoff/coff): device DP + device
@@ -124,8 +124,6 @@ def gapped_extend_flat_batch(hits, qbufs, dbufs, *, d: int, dropout: int,
     ints = ints.astype(np.int32)
     tb = tb.astype(np.int32)
     prof.count("ris.gapped.hits", n)
-    if sweep_op.kernel_form(max_ext, device) == "worklist":
-        prof.count("ris.gapped.worklist_hits", n)
     prof.count("ris.gapped.overflow", int(overflow.sum()))
     m_i0, m_j0, m_i1, m_j1 = (ints[:, k] for k in range(4))
     q_sp = np.asarray(hits["q_sp"]).astype(np.int32)

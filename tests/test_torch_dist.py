@@ -21,7 +21,6 @@ torch.set_num_threads(1)
 from priblast_tpu.accessibility import batched as jb  # noqa: E402
 from priblast_tpu.models import db as jdb  # noqa: E402
 from priblast_tpu.models import ris as jris  # noqa: E402
-from priblast_tpu.models import ris_tpu  # noqa: E402
 from priblast_tpu.parallel import dist as jdist  # noqa: E402
 from priblast_tpu.utils.params import DbParams as JDbParams  # noqa: E402
 from priblast_tpu.utils.params import RisParams as JRisParams  # noqa: E402
@@ -284,7 +283,7 @@ def test_dryrun_multichip_on_eight_cpu_shards():
 
 # ---- the entry points with two devices ------------------------------------
 
-@pytest.mark.parametrize("mode", ["always", "hybrid"])
+@pytest.mark.parametrize("mode", ["always", "auto"])
 def test_ris_on_two_devices(tmp_path, data_dir, golden_dir, monkeypatch,
                             mode):
     """`ris` through its entry point with devices=[cpu, cpu] writes the
@@ -293,24 +292,16 @@ def test_ris_on_two_devices(tmp_path, data_dir, golden_dir, monkeypatch,
     tests/test_torch_router.py's limits."""
     q_fa = str(data_dir / "tiny_q.fa")
     db = str(golden_dir / "tiny" / "tiny_db")
-    for mod in (ris_gpu, ris_tpu):
-        monkeypatch.setitem(mod._CAL, "host", None)
-        monkeypatch.setitem(mod._CAL, "dev", None)
+    monkeypatch.setenv("PRIBLAST_DEVICE_EXTEND",
+                       {"always": "1", "auto": "auto"}[mode])
     n_devs = []
-    if mode == "hybrid":
-        # the first query (longest) on the host chain, the others on the
-        # device chain, whatever the device count, so that both runs
-        # search each query on the same chain
-        monkeypatch.setenv("PRIBLAST_DEVICE_EXTEND", "auto")
-        monkeypatch.setenv("PRIBLAST_HYBRID", "1")
+    wins0 = ris_gpu.device_extend_wins
 
-        def split_rec(pairs, threads, n_dev):
-            n_devs.append(n_dev)
-            return [0], sorted(pairs)[1:]
+    def wins_rec(n_pairs, threads, n_dev):
+        n_devs.append(n_dev)
+        return wins0(n_pairs, threads, n_dev)
 
-        monkeypatch.setattr(ris_gpu, "split_wave", split_rec)
-    else:
-        monkeypatch.setenv("PRIBLAST_DEVICE_EXTEND", "1")
+    monkeypatch.setattr(ris_gpu, "device_extend_wins", wins_rec)
     bodies = {}
     for k in (1, 2):
         out = tmp_path / f"port{k}.txt"
@@ -318,10 +309,9 @@ def test_ris_on_two_devices(tmp_path, data_dir, golden_dir, monkeypatch,
                            device="cpu"), threads=2, devices=[CPU] * k)
         bodies[k] = out.read_text().splitlines()
     assert bodies[1][3:] == bodies[2][3:] and len(bodies[1]) > 3
-    if mode == "hybrid":
-        # the router counts distinct devices: two shards on the CPU run
-        # at one device's rate
-        assert n_devs == [1, 1]
+    # the router counts distinct devices: two shards on the CPU run at one
+    # device's rate, so both runs take the same chain
+    assert n_devs == ([1, 1] if mode == "auto" else [])
 
     out_jax = str(tmp_path / "tpu.txt")
     jris.run(JRisParams(input=q_fa, output=out_jax, db_name=db,

@@ -2,11 +2,11 @@
 the CUDA built-ins (tests/cuda_emu/cuda_runtime.h: one std::thread per
 CUDA thread), against their plain PyTorch versions on the tiny goldens:
 the gapped kernel (one warp per block) on the mid-stage hits, integers,
-traceback lists and floats identical, and its work-list form (max_ext <=
-32) also on synthetic GC-rich hits (every band cell admitted, diagonals of
-hundreds of combos, equal energies whose order decides, overflow at
-max_ext), with its -DGAPPED_STAMPS build's counts against the plain
-version's; the ungapped kernel (a thread per
+traceback lists and floats identical, also on synthetic GC-rich hits
+(every band cell admitted, diagonals of hundreds of combos, equal energies
+whose order decides, overflow at max_ext), with its -DGAPPED_STAMPS
+build's counts against the plain version's, and its refusal of max_ext
+past 32; the ungapped kernel (a thread per
 hit) on the stage-1 hits, on exact argmin ties, on a batch that mixes
 long and short hits in every warp, on batches smaller than a warp or
 ending inside a warp and on hits that step past both ends of the flat
@@ -121,8 +121,8 @@ def tiny_hits(tmp_path_factory):
 
 @pytest.mark.parametrize("dtype,max_ext,dropout,min_helix", [
     ("float32", 32, 16, 3),
-    ("float64", 64, 16, 3),
-    ("float32", 40, 9, 2),
+    ("float64", 32, 16, 3),
+    ("float32", 16, 9, 2),
     ("float64", 24, 9, 2),
 ])
 def test_kernel_source_matches_plain_version_in_emulation(
@@ -152,7 +152,48 @@ def test_kernel_source_matches_plain_version_in_emulation(
     assert swept > 10 * N_HITS   # the hits do extend
 
 
-# ---- the work-list form (max_ext <= 32) on synthetic GC-rich hits ---------
+@pytest.mark.parametrize("max_ext", [33, 64, 120])
+def test_kernel_source_refuses_max_ext_past_a_warp_in_emulation(
+        emu_lib, tiny_hits, max_ext):
+    """The C entry points return cudaErrorInvalidValue for max_ext past
+    KERNEL_MAX_EXT (the source's kWorkMax), in either dtype, and write
+    none of their outputs; the plain version still runs them."""
+    soa, energy, acc, qbufs, dbufs, _stage1 = tiny_hits
+    src = sweep_op._SRC.read_text()
+    assert f"constexpr int kWorkMax = {sweep_op.KERNEL_MAX_EXT};" in src
+    assert max_ext > sweep_op.KERNEL_MAX_EXT
+    valid = torch.ones(N_HITS, dtype=torch.bool)
+    args = (soa["q_sp"], soa["db_sp"], soa["dbseq_start"], energy, acc,
+            valid, *(soa[k] for k in ("qb", "qab", "dbb", "aoff", "coff")),
+            qbufs[0], dbufs[0], qbufs[1], qbufs[2], dbufs[1], dbufs[2])
+    kw = dict(flag=1, d=5, dropout=16, min_helix=3, max_ext=max_ext)
+    for dtype, fn in (("float32", emu_lib.gapped_extend_f32),
+                      ("float64", emu_lib.gapped_extend_f64)):
+        after = []
+
+        def marked(ptrs, sizes, iparams, stream, _fn=fn, _dt=dtype):
+            # the outputs (ptrs 19-21: ints, floats, tb) marked before the
+            # call and read back after it
+            B, steps = sizes[6], iparams[6]
+            item = 4 if _dt == "float32" else 8
+            outs = ((ptrs[19], B * 5 * 4), (ptrs[20], B * 2 * item),
+                    (ptrs[21], B * 2 * steps * 4))
+            for at, n in outs:
+                ctypes.memset(at, 0x5A, n)
+            err = _fn(ptrs, sizes, iparams, stream)
+            after.extend(ctypes.string_at(at, n) == b"\x5a" * n
+                         for at, n in outs)
+            return err
+
+        with pytest.raises(RuntimeError, match="CUDA error 1$"):
+            sweep_op._call(marked, args, 0, dtype=dtype, **kw)
+        assert after == [True] * 3
+        ints, _floats, _tb = sweep_op.extend_dir_plain(*args, dtype=dtype,
+                                                       **kw)
+        assert int(ints[:, 4].max()) > 0
+
+
+# ---- the work list on synthetic GC-rich hits -------------------------------
 
 STAMP_KEYS = ("hits", "diagonals", "band", "admitted", "combos", "steps",
               "empty", "busiest", "rounds", "nopred")  # kernel's kS* order
